@@ -14,17 +14,26 @@ Phases, each printing one JSON line with its elapsed seconds:
      generated into a temporary directory and run through the port's CLI
      (``python -m ntsynt_tpu_torch a.fa b.fa -d 1``) on the card; the
      blocks TSV must hold the inversion as a '-' block and every kernel
-     must have launched; prints each launch's sizes and the run's peak
-     device memory;
+     of the path must have launched; prints each launch's sizes and the
+     run's peak device memory;
   5. winmin_refine: the window-argmin kernel against its plain version at
      the key counts the main path's refinement rounds gave it;
-  6. card vs CPU: a 200 kb two-genome scenario through the CLI on
-     --device cuda and --device cpu; every artifact must be
-     byte-identical.
-Then the kernel table as one JSON line, nvidia-smi's "name, power limit"
-line, and last {"ok": true, "device": {...}}. Any failed check raises,
-so the script exits non-zero; without CUDA, or without the package
-beside it, it exits non-zero before printing any result.
+  6. sweep path: the 2 x 100 Mbp cascade built through the binned sweep
+     (NTSYNT_BF_SWEEP=1) must equal the atomic-OR cascade word for word,
+     and the CLI run with the sweep on must write the main path's blocks,
+     launching the sweep and never the atomic-OR insert;
+  7. filter paths: the CLI with --filter Indexlr and with --filter Filter
+     (the repeat filter) on the same genomes, each finding the inversion;
+  8. make_bf: make-common-bf --format btllib, reloaded through load_bf,
+     gives the cascade's words;
+  9. card vs CPU: a 200 kb two-genome scenario through the CLI on
+     --device cuda and --device cpu, without and with each --filter
+     mode; every artifact must be byte-identical.
+Each path's kernel counts are set to 0 just before it and read just
+after. Then the kernel table as one JSON line, nvidia-smi's "name, power
+limit" line, and last {"ok": true, "device": {...}}. Any failed check
+raises, so the script exits non-zero; without CUDA, or without the
+package beside it, it exits non-zero before printing any result.
 """
 
 import contextlib
@@ -42,6 +51,16 @@ SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 GENOME_BP = 100_000_000
 INV_BP = 50_000
+FILTER_LOG2 = 32  # the common filter's size at 100 Mbp (--fpr 0.025)
+WIDE_LOG2 = 36  # the largest filter --bf may ask for: canon's high bits index its words
+# the kernels each path launches (bf_insert builds the repeat filter on
+# the --filter paths; the sweep path's cascade never runs it)
+PATH_KERNELS = {
+    "main": ("nthash", "winmin", "compact", "bf_insert"),
+    "sweep": ("nthash", "winmin", "compact", "bf_sweep"),
+    "sweep_build": ("nthash", "bf_sweep"),
+    "filter": ("nthash", "winmin", "compact", "bf_insert"),
+}
 
 
 def emit(obj) -> None:
@@ -151,6 +170,58 @@ def run_cli(workdir: str, args) -> str:
     return os.path.join(workdir, "smoke.synteny_blocks.tsv")
 
 
+@contextlib.contextmanager
+def sweep_env(value):
+    """NTSYNT_BF_SWEEP set to value (None: unset) inside the block."""
+    old = os.environ.get("NTSYNT_BF_SWEEP")
+    if value is None:
+        os.environ.pop("NTSYNT_BF_SWEEP", None)
+    else:
+        os.environ["NTSYNT_BF_SWEEP"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("NTSYNT_BF_SWEEP", None)
+        else:
+            os.environ["NTSYNT_BF_SWEEP"] = old
+
+
+def drive_path(torch, name: str, fn):
+    """Run fn with every kernel count set to 0 just before and read just
+    after; every kernel of the path must have launched. Returns (fn's
+    result, launches, launch sizes)."""
+    from ntsynt_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    shapes = {k: list(v) for k, v in _kernels.SHAPES.items()}
+    for kernel in PATH_KERNELS[name]:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched on the {name} path")
+    return out, launches, shapes
+
+
+def read_stages(path: str) -> dict:
+    stages = {}
+    with open(path) as fin:
+        next(fin)
+        for line in fin:
+            p = line.rstrip("\n").split("\t")
+            stages[p[0]] = {"s": float(p[1]), "cuda_peak_so_far_mb": float(p[3])}
+    return stages
+
+
+def find_inversion(rows, inv_start: int, inv_end: int) -> dict:
+    hit = [r for r in rows if r["ori"] == "-" and abs(r["start"] - inv_start) < 5000
+           and abs(r["end"] - inv_end) < 5000]
+    if not hit:
+        raise AssertionError(f"no '-' block covers the inversion [{inv_start}, {inv_end}): {rows}")
+    return {k: hit[0][k] for k in ("asm", "start", "end", "ori", "nmx")}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -173,7 +244,8 @@ def time_winmin(winmin, keys, w: int) -> dict:
 
 def phase_kernels(torch, dev, kernels: dict) -> None:
     """Each kernel vs its plain version at main-path shapes."""
-    from ntsynt_tpu_torch.ops import _kernels, bf_build, bloom, nthash, sketch_device, winmin
+    from ntsynt_tpu_torch.ops import (_kernels, bf_build, bf_sweep, bloom, nthash,
+                                      sketch_device, winmin)
 
     rng = np.random.default_rng(SEED)
     k = 24
@@ -228,74 +300,195 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     )
 
     # K4 into a 2^32-bit filter, the main path's size at 100 Mbp
-    bits = 32
+    bits = FILTER_LOG2
     nwords = (1 << bits) // 32
     words = torch.zeros(nwords, dtype=torch.int32, device=dev)
     bloom.insert_words(words, canon, valid, bits)
     pwords = bloom.insert_words_plain(torch.zeros_like(words), canon, valid, bits)
     err = require_equal("K4", [(words, pwords)])
     del pwords
-    # 33- and 34-bit filters take canon's high bits into the word index
-    w34 = torch.zeros((1 << 34) // 32, dtype=torch.int32, device=dev)
+    # filters past 2^32 bits take canon's high bits into the word index
+    w34 = torch.zeros((1 << WIDE_LOG2) // 32, dtype=torch.int32, device=dev)
     sub = slice(0, 1 << 22)
-    bloom.insert_words(w34, canon[sub].contiguous(), valid[sub].contiguous(), 34)
-    p34 = bloom.insert_words_plain(torch.zeros_like(w34), canon[sub], valid[sub], 34)
-    require_equal("K4 34-bit", [(w34, p34)])
+    bloom.insert_words(w34, canon[sub].contiguous(), valid[sub].contiguous(), WIDE_LOG2)
+    p34 = bloom.insert_words_plain(torch.zeros_like(w34), canon[sub], valid[sub], WIDE_LOG2)
+    require_equal(f"K4 {WIDE_LOG2}-bit", [(w34, p34)])
     del w34, p34
     # only the words that valid keys hit must be read and written
     hit_words = torch.unique(bloom.bit_index(canon[valid], bits)[0]).numel()
+    k4_bound = (9 * n + 8 * hit_words) / HBM_BYTES_PER_S * 1e3
     kernels["bf_insert"].update(
         max_abs_err=err,
         ms=cuda_time_ms(lambda: bloom.insert_words(words, canon, valid, bits), 10),
         plain_ms=cuda_time_ms(lambda: bloom.insert_words_plain(words, canon, valid, bits), 2),
-        bound_ms=(9 * n + 8 * hit_words) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=k4_bound,
         shape=f"{n} keys into 2^{bits} bits ({hit_words} distinct words hit)",
     )
-    del words, key, canon, valid, codes
+
+    # K5, insert: the same keys into the same filter size, against its
+    # plain version (the union K4 computed above, another way)
+    swept = torch.zeros(nwords, dtype=torch.int32, device=dev)
+    bf_sweep.insert_segment(swept, canon, valid, bits)
+    pswept = bf_sweep.sweep_plain(torch.zeros_like(swept), canon, valid, bits)
+    err = require_equal("K5 insert", [(swept, pswept), (swept, words)])
+    del pswept
+    # K5, cascade: prev holds the first half of the keys
+    half = n // 2
+    prev = bf_sweep.sweep_plain(torch.zeros_like(swept), canon[:half], valid[:half], bits)
+    new = bf_sweep.cascade_segment(prev, torch.zeros_like(swept), canon, valid, bits)
+    pnew = bf_sweep.sweep_plain(torch.zeros_like(swept), canon, valid, bits, prev=prev)
+    err_c = require_equal("K5 cascade", [(new, pnew)])
+    new_words = int((new != 0).sum())
+    del pnew
+    cascade = dict(
+        max_abs_err=err_c,
+        ms=cuda_time_ms(lambda: bf_sweep.cascade_segment(prev, new, canon, valid, bits), 10),
+        plain_ms=cuda_time_ms(
+            lambda: bf_sweep.sweep_plain(new, canon, valid, bits, prev=prev), 2),
+        # keys once, prev's hit words read, new's written words read and written
+        bound_ms=(9 * n + 4 * hit_words + 8 * new_words) / HBM_BYTES_PER_S * 1e3,
+        shape=f"{n} keys into 2^{bits} bits over a prev of {half} keys "
+              f"({new_words} words of new set)",
+    )
+    del new, prev
+    # a single-cell filter (2^16 bits) and an all-in-one-cell segment of
+    # a 2^32-bit filter, on 2^22 of the keys
+    sub = min(1 << 22, n)
+    c_sub, v_sub = canon[:sub].contiguous(), valid[:sub].contiguous()
+    one_cell = c_sub & ((1 << (bf_sweep.CELL_LOG2 + 5)) - 1)
+    small = {}
+    for label, sbits, keys in (("single_cell_2^16", 16, c_sub),
+                               ("one_cell_of_2^32", bits, one_cell)):
+        sw = torch.zeros((1 << sbits) // 32, dtype=torch.int32, device=dev)
+        bf_sweep.insert_segment(sw, keys, v_sub, sbits)
+        e = require_equal(f"K5 {label}", [
+            (sw, bf_sweep.sweep_plain(torch.zeros_like(sw), keys, v_sub, sbits))])
+        hits = torch.unique(bloom.bit_index(keys[v_sub], sbits)[0]).numel()
+        small[label] = dict(
+            max_abs_err=e,
+            ms=cuda_time_ms(lambda: bf_sweep.insert_segment(sw, keys, v_sub, sbits), 5),
+            plain_ms=cuda_time_ms(lambda: bf_sweep.sweep_plain(sw, keys, v_sub, sbits), 2),
+            bound_ms=(9 * sub + 8 * hits) / HBM_BYTES_PER_S * 1e3,
+            shape=f"{sub} keys into 2^{sbits} bits ({hits} distinct words hit)",
+        )
+        del sw
+    # where K5's time goes: binning (count, prefix sum, scatter) and the
+    # per-cell shared-memory apply, each timed alone
+    binned, offsets = bf_sweep.bin_keys(canon, valid, bits)
+    stage_ms = dict(
+        bin=cuda_time_ms(lambda: bf_sweep.bin_keys(canon, valid, bits), 10),
+        apply=cuda_time_ms(lambda: bf_sweep.apply_bins(swept, binned, offsets, bits), 10),
+    )
+    del binned, offsets
+    kernels["bf_sweep"].update(
+        stage_ms=stage_ms,
+        max_abs_err=max(err, err_c, *(d["max_abs_err"] for d in small.values())),
+        ms=cuda_time_ms(lambda: bf_sweep.insert_segment(swept, canon, valid, bits), 10),
+        plain_ms=cuda_time_ms(lambda: bf_sweep.sweep_plain(swept, canon, valid, bits), 2),
+        bound_ms=k4_bound,
+        shape=f"{n} keys into 2^{bits} bits ({hit_words} distinct words hit), insert",
+        k4_ms_same_shape=kernels["bf_insert"]["ms"],
+        cascade=cascade,
+        **small,
+    )
+    del words, swept, key, canon, valid, codes, c_sub, v_sub, one_cell
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     _kernels.reset_launches()
 
 
-def phase_main_path(torch, tmp: str, info: dict) -> dict:
-    from ntsynt_tpu_torch.ops import _kernels
+INV_START = int(GENOME_BP * 0.4)
 
-    inv_start = int(GENOME_BP * 0.4)
-    t0 = time.perf_counter()
-    fa, fb = make_pair(tmp, GENOME_BP, inv_start, INV_BP, 0.001, SEED)
-    info["generate_s"] = round(time.perf_counter() - t0, 3)
-    work = os.path.join(tmp, "main")
+
+def run_cli_path(torch, tmp: str, name: str, path: str, args, info: dict) -> str:
+    """One 2 x 100 Mbp CLI run in its own directory as the given path:
+    launches, launch sizes, stage times, peak device memory, and the
+    inversion's block. Returns the blocks TSV path."""
+    work = os.path.join(tmp, name)
     os.makedirs(work)
-    _kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = run_cli(work, [fa, fb, "-d", "1", "-p", "smoke", "--benchmark"])
-    torch.cuda.synchronize()
+    out, launches, shapes = drive_path(
+        torch, path, lambda: run_cli(work, [*args, "-d", "1", "-p", "smoke", "--benchmark"]))
     info["cli_s"] = round(time.perf_counter() - t0, 3)
-    launches = dict(_kernels.LAUNCHES)
     info["launches"] = launches
-    info["launch_shapes"] = {name: list(s) for name, s in _kernels.SHAPES.items()}
+    info["launch_shapes"] = shapes
     # the run's peak: reset above, and nothing in the port resets it
     info["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    stages = {}
-    with open(os.path.join(work, "smoke.time.tsv")) as fin:
-        next(fin)
-        for line in fin:
-            p = line.rstrip("\n").split("\t")
-            stages[p[0]] = {"s": float(p[1]), "cuda_peak_so_far_mb": float(p[3])}
-    info["stages"] = stages
+    info["stages"] = read_stages(os.path.join(work, "smoke.time.tsv"))
     rows = read_blocks(out)
     info["blocks"] = len({r["id"] for r in rows})
-    inv_end = inv_start + INV_BP
-    hit = [r for r in rows if r["ori"] == "-" and abs(r["start"] - inv_start) < 5000
-           and abs(r["end"] - inv_end) < 5000]
-    if not hit:
-        raise AssertionError(f"no '-' block covers the inversion [{inv_start}, {inv_end}): {rows}")
-    info["inversion_block"] = {k: hit[0][k] for k in ("asm", "start", "end", "ori", "nmx")}
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    return launches, info["launch_shapes"]
+    info["inversion_block"] = find_inversion(rows, INV_START, INV_START + INV_BP)
+    return out
+
+
+def phase_main_path(torch, tmp: str, info: dict):
+    t0 = time.perf_counter()
+    fa, fb = make_pair(tmp, GENOME_BP, INV_START, INV_BP, 0.001, SEED)
+    info["generate_s"] = round(time.perf_counter() - t0, 3)
+    out = run_cli_path(torch, tmp, "main", "main", [fa, fb], info)
+    return info["launches"], info["launch_shapes"], fa, fb, out
+
+
+def phase_sweep_path(torch, dev, tmp: str, fa: str, fb: str, main_out: str, info: dict):
+    """The cascade through K5 against the cascade through K4 on the
+    2 x 100 Mbp genomes, then the CLI with the sweep on. Returns the K4
+    cascade's filter and the sweep run's launches."""
+    from ntsynt_tpu_torch.io.fasta import read_fasta
+    from ntsynt_tpu_torch.ops import bf_build
+
+    genomes = [read_fasta(fa), read_fasta(fb)]
+    with sweep_env("1"):
+        t0 = time.perf_counter()
+        swept, info["build_launches"], _ = drive_path(
+            torch, "sweep_build", lambda: bf_build.build_common_bf(genomes, 24, device=dev))
+        info["build_common_bf_sweep_s"] = round(time.perf_counter() - t0, 3)
+    with sweep_env(None):
+        t0 = time.perf_counter()
+        cascade = bf_build.build_common_bf(genomes, 24, device=dev)
+        torch.cuda.synchronize()
+        info["build_common_bf_atomic_or_s"] = round(time.perf_counter() - t0, 3)
+    if info["build_launches"]["bf_insert"] != 0:
+        raise AssertionError("the sweep cascade launched the atomic-OR insert")
+    if not torch.equal(swept.words, cascade.words):
+        raise AssertionError("the sweep cascade's words differ from the atomic-OR cascade's")
+    info["cascade_words_equal"] = True
+    info["num_bits"] = swept.num_bits
+    info["popcount"] = swept.popcount()
+    del genomes, swept
+    torch.cuda.empty_cache()
+    with sweep_env("1"):
+        out = run_cli_path(torch, tmp, "sweep", "sweep", [fa, fb], info)
+    if info["launches"]["bf_insert"] != 0:
+        raise AssertionError("the sweep CLI run launched the atomic-OR insert")
+    with open(out, "rb") as f1, open(main_out, "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("the sweep CLI run's blocks differ from the default run's")
+    info["blocks_equal_main"] = True
+    return cascade, info["launches"]
+
+
+def phase_make_bf(torch, dev, tmp: str, fa: str, fb: str, cascade, info: dict) -> None:
+    """make-common-bf --format btllib, reloaded through load_bf."""
+    from ntsynt_tpu_torch import make_bf
+    from ntsynt_tpu_torch.ops.bloom import BloomFilter, load_bf
+
+    prefix = os.path.join(tmp, "common")
+    t0 = time.perf_counter()
+    if make_bf.common_main(["--genome", fb, fa, "-k", "24", "-p", prefix, "--format", "btllib"]):
+        raise AssertionError("make-common-bf failed")
+    info["make_common_bf_cli_s"] = round(time.perf_counter() - t0, 3)
+    with open(prefix + ".bf", "rb") as fin:
+        if not fin.read(24).startswith(b"[BTLKmerBloomFilter_v6]"):
+            raise AssertionError("make-common-bf did not write a btllib container")
+    info["bytes"] = os.path.getsize(prefix + ".bf")
+    t0 = time.perf_counter()
+    bf = load_bf(prefix + ".bf", device=dev)
+    info["load_bf_s"] = round(time.perf_counter() - t0, 3)
+    if not isinstance(bf, BloomFilter) or not torch.equal(bf.words, cascade.words):
+        raise AssertionError("the reloaded btllib filter differs from the cascade")
+    info["reloaded_words_equal"] = True
+    os.remove(prefix + ".bf")
 
 
 def phase_winmin_refine(torch, dev, shapes, kernels: dict, info: dict) -> None:
@@ -325,9 +518,12 @@ def phase_winmin_refine(torch, dev, shapes, kernels: dict, info: dict) -> None:
 
 
 def phase_card_vs_cpu(tmp: str, info: dict) -> None:
-    """The 200 kb inversion scenario of the CPU tests, on cuda and cpu."""
+    """The 200 kb inversion scenario of the CPU tests (with a tandem
+    repeat for the repeat filter), on cuda and cpu, without and with each
+    --filter mode."""
     rng = np.random.default_rng(1234)
     base = rng.integers(0, 4, 200_000).astype(np.uint8)
+    base[150_000:160_000] = base[140_000:150_000]
     inv = base.copy()
     inv[80_000:130_000] = inv[80_000:130_000][::-1] ^ 3
     small = os.path.join(tmp, "small")
@@ -336,19 +532,25 @@ def phase_card_vs_cpu(tmp: str, info: dict) -> None:
     fb = write_fasta(os.path.join(small, "inv.fa"), [("chr1", inv)], width=70)
     args = [fa, fb, "-d", "1", "-k", "24", "-w", "100", "--w_rounds", "50", "10",
             "-b", "500", "--indel", "500", "--merge", "3000", "-p", "smoke"]
-    outs = {}
-    for device in ("cuda", "cpu"):
-        work = os.path.join(small, device)
-        os.makedirs(work)
-        run_cli(work, args + ["--device", device])
-        outs[device] = {f: open(os.path.join(work, f), "rb").read() for f in sorted(os.listdir(work))}
-    if sorted(outs["cuda"]) != sorted(outs["cpu"]):
-        raise AssertionError(f"artifact sets differ: {sorted(outs['cuda'])} vs {sorted(outs['cpu'])}")
-    for f in outs["cuda"]:
-        if outs["cuda"][f] != outs["cpu"][f]:
-            raise AssertionError(f"{f} differs between --device cuda and --device cpu")
-    info["artifacts_identical"] = sorted(outs["cuda"])
-    info["blocks_rows"] = outs["cuda"]["smoke.synteny_blocks.tsv"].decode().count("\n")
+    for case, extra in (("default", []), ("filter_Indexlr", ["--filter", "Indexlr"]),
+                        ("filter_Filter", ["--filter", "Filter"])):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            work = os.path.join(small, f"{case}_{device}")
+            os.makedirs(work)
+            run_cli(work, args + extra + ["--device", device])
+            outs[device] = {f: open(os.path.join(work, f), "rb").read()
+                            for f in sorted(os.listdir(work))}
+        if sorted(outs["cuda"]) != sorted(outs["cpu"]):
+            raise AssertionError(
+                f"{case}: artifact sets differ: {sorted(outs['cuda'])} vs {sorted(outs['cpu'])}")
+        for f in outs["cuda"]:
+            if outs["cuda"][f] != outs["cpu"][f]:
+                raise AssertionError(f"{case}: {f} differs between --device cuda and --device cpu")
+        info[case] = dict(
+            artifacts_identical=sorted(outs["cuda"]),
+            blocks_rows=outs["cuda"]["smoke.synteny_blocks.tsv"].decode().count("\n"),
+        )
 
 
 def main() -> int:
@@ -381,12 +583,13 @@ def main() -> int:
         _kernels.lib()
 
     sources = {"nthash": "nthash.cu", "winmin": "winmin.cu", "compact": "compact.cu",
-               "bf_insert": "bf_insert.cu"}
+               "bf_insert": "bf_insert.cu", "bf_sweep": "bf_sweep.cu"}
     replaces = {
         "nthash": "ntsynt_tpu/ops/nthash_pallas.py:74",
         "winmin": "ntsynt_tpu/ops/winmin_pallas.py:91",
         "compact": "ntsynt_tpu/ops/sketch_device.py:170",
         "bf_insert": "ntsynt_tpu/ops/bf_place.py:288",
+        "bf_sweep": "ntsynt_tpu/ops/bf_sweep.py:221",
     }
     kernels = {
         name: dict(name=name, route="cuda", source=f"ntsynt_tpu_torch/csrc/{src}",
@@ -402,16 +605,29 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="ntsynt_smoke_")
     try:
         with phase("main_path", {}) as info:
-            launches, shapes = phase_main_path(torch, tmp, info)
+            launches, shapes, fa, fb, main_out = phase_main_path(torch, tmp, info)
         with phase("winmin_refine", {}) as info:
             phase_winmin_refine(torch, dev, shapes, kernels, info)
+        with phase("sweep_path", {}) as info:
+            cascade, sweep_launches = phase_sweep_path(torch, dev, tmp, fa, fb, main_out, info)
+        with phase("make_bf", {}) as info:
+            phase_make_bf(torch, dev, tmp, fa, fb, cascade, info)
+        del cascade
+        torch.cuda.empty_cache()
+        for mode in ("Indexlr", "Filter"):
+            with phase(f"filter_{mode}", {}) as info:
+                run_cli_path(torch, tmp, f"filter_{mode}", "filter",
+                             [fa, fb, "--filter", mode], info)
         with phase("card_vs_cpu", {}) as info:
             phase_card_vs_cpu(tmp, info)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     for name, d in kernels.items():
-        d["launches"] = launches[name]
+        # each kernel's launches on its own path: K5 on the sweep path
+        # (NTSYNT_BF_SWEEP=1), the others on the default main path
+        d["path"] = "sweep" if name == "bf_sweep" else "main"
+        d["launches"] = (sweep_launches if name == "bf_sweep" else launches)[name]
         d["status"] = "ok"
     emit({"kernels": [kernels[n] for n in sources]})
     emit({"total_seconds": round(time.perf_counter() - t_all, 3)})

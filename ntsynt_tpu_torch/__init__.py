@@ -4,8 +4,8 @@ A port of the JAX package ``ntsynt_tpu`` (which stays the reference):
 minimizer sketching -> common-k-mer Bloom filter -> minimizer graph ->
 linear synteny paths -> refinement rounds -> collinear merging, with the
 hot loops as hand-written CUDA kernels for Hopper (``csrc/*.cu``: k-mer
-hashing, window argmin, minimizer compaction, Bloom-filter insert) and
-plain PyTorch versions of each kernel for CPU tensors.
+hashing, window argmin, minimizer compaction, Bloom-filter insert and
+binned sweep) and plain PyTorch versions of each kernel for CPU tensors.
 
 Entry points take an explicit ``device``; the default is ``"cuda"``, and
 asking for CUDA on a machine without it raises instead of falling back.
@@ -14,6 +14,10 @@ asking for CUDA on a machine without it raises instead of falling back.
 import torch
 
 __version__ = "0.1.0"
+
+from .utils.malloc_tune import tune_glibc_malloc as _tune
+
+_tune()  # see utils/malloc_tune.py: keeps large host temporaries heap-resident
 
 
 def resolve_device(device="cuda") -> torch.device:

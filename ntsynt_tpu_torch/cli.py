@@ -90,11 +90,16 @@ def build_parser():
     parser.add_argument("--indel", help="Threshold for indel detection (bp)", type=int)
     parser.add_argument("--no-common", help=argparse.SUPPRESS, action="store_true")
     parser.add_argument("--no-simplify-graph", help=argparse.SUPPRESS, action="store_true")
+    # experimental repeat-BF path: the reference's bin/ntSynt hides it
+    # (no repeat flag there; the .smk make_repeat_bf rule is
+    # experimental and reached via bin/ntsynt_run.py:21 --filter)
     parser.add_argument(
         "--filter",
         dest="repeat_filter",
         choices=["Filter", "Indexlr"],
-        help="Experimental repeat-Bloom-filter filtering (not ported yet: rejected)",
+        help="Experimental: filter repetitive minimizers with a repeat "
+        "Bloom filter, either at sketch time (Indexlr, like indexlr -r) "
+        "or at load time (Filter)",
     )
     parser.add_argument("-n", "--dry-run", help="Print planned steps and exit", action="store_true")
     parser.add_argument("--benchmark", help="Record per-stage wall-clock timings", action="store_true")
@@ -117,8 +122,8 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     apply_divergence_presets(args, parser)
-    if args.repeat_filter is not None or args.mesh:
-        parser.error("--filter and --mesh are not ported to ntsynt_tpu_torch yet")
+    if args.mesh:
+        parser.error("--mesh is not ported to ntsynt_tpu_torch yet")
 
     for w in args.w_rounds:
         if w > args.w:
@@ -171,6 +176,8 @@ def main(argv=None):
         merge=str(args.merge),
         w_rounds=tuple(args.w_rounds),
         common=not args.no_common,
+        repeat=args.repeat_filter is not None,
+        repeat_filter=args.repeat_filter,
         simplify_graph=not args.no_simplify_graph,
         benchmark=args.benchmark,
         dev=args.dev,

@@ -6,20 +6,6 @@ is bit i & 31 of 32-bit word i >> 5), so a filter moves as its words.
 """
 
 import numpy as np
-import torch
-
-from . import resolve_device
-from .ops.bloom import BloomFilter
-
-
-def bf_from_numpy(words_u32: np.ndarray, num_bits: int, k: int, device="cuda") -> BloomFilter:
-    """A port BloomFilter from a filter's uint32 words (e.g. a JAX
-    DeviceBloomFilter's ``np.asarray(bf.words)``)."""
-    words = np.ascontiguousarray(words_u32, dtype=np.uint32)
-    if words.shape != (num_bits // 32,):
-        raise ValueError(f"expected {num_bits // 32} words, got {words.shape}")
-    words = torch.from_numpy(words.view(np.int32).copy()).to(resolve_device(device))
-    return BloomFilter(num_bits, k, words=words)
 
 
 def sketch_to_numpy(sk) -> dict:

@@ -157,9 +157,17 @@ class AssemblyMinimizers:
     pos_lists: list | None = None
 
     @classmethod
-    def from_sketch(cls, sk, genome=None) -> "AssemblyMinimizers":
-        """Build from ops.sketch.GenomeSketch."""
-        hashes, cidx, pos = sk.hashes, sk.contig_idx, sk.positions
+    def from_sketch(cls, sk, genome=None, repeat_canon_filter=None) -> "AssemblyMinimizers":
+        """Build from ops.sketch.GenomeSketch.
+
+        repeat_canon_filter: optional callable(canon u64[m]) -> bool mask
+        of minimizers to DROP (the --filter Filter repeat-BF path,
+        bin/ntsynt_synteny.py:605-607).
+        """
+        hashes, cidx, pos, canon = sk.hashes, sk.contig_idx, sk.positions, sk.canon
+        if repeat_canon_filter is not None:
+            keep = ~repeat_canon_filter(canon)
+            hashes, cidx, pos = hashes[keep], cidx[keep], pos[keep]
         keep = _dedupe_mask(hashes)
         hashes, cidx, pos = hashes[keep], cidx[keep], pos[keep]
         lists = _split_lists(hashes, cidx, len(sk.contig_names))
@@ -198,14 +206,24 @@ class AssemblyMinimizers:
         )
 
     @classmethod
-    def from_tsv_records(cls, key, records, genome=None) -> "AssemblyMinimizers":
-        """Build from io.sketch_tsv.read_sketch_tsv output."""
+    def from_tsv_records(
+        cls, key, records, genome=None, repeat_out_filter=None
+    ) -> "AssemblyMinimizers":
+        """Build from io.sketch_tsv.read_sketch_tsv output.
+
+        repeat_out_filter: optional callable(printed u64[m]) -> bool mask
+        of minimizers to DROP (--filter Filter at TSV load time,
+        read_minimizers(repeat_bf), bin/ntsynt_synteny.py:604-607).
+        """
         names = [r[0] for r in records]
         hashes = np.concatenate([r[1] for r in records]) if records else np.zeros(0, np.uint64)
         cidx = np.concatenate(
             [np.full(len(r[1]), i, np.int32) for i, r in enumerate(records)]
         ) if records else np.zeros(0, np.int32)
         pos = np.concatenate([r[2] for r in records]) if records else np.zeros(0, np.int64)
+        if repeat_out_filter is not None and len(hashes):
+            keep = ~repeat_out_filter(hashes)
+            hashes, cidx, pos = hashes[keep], cidx[keep], pos[keep]
         keep = _dedupe_mask(hashes)
         hashes, cidx, pos = hashes[keep], cidx[keep], pos[keep]
         lists = _split_lists(hashes, cidx, len(names))

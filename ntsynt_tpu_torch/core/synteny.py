@@ -45,9 +45,17 @@ class SyntenyParams:
     w_rounds: tuple = (100, 10)  # (:26-27)
     simplify_graph: bool = True
     dev: bool = False
+    interarrivals: bool = False
     prefix: str = "out"
-    # sketching filter: ops.bloom.BloomFilter or None
+    # sketching filters: ops.bloom.BloomFilter, HostModBloomFilter or None
     common_bf: object = None
+    repeat_bf: object = None
+    # None | 'Filter' | 'Indexlr' (bin/ntsynt_run.py:21): 'Indexlr'
+    # excludes repeat k-mers from minimizer CANDIDACY in refinement
+    # re-sketches (indexlr -r); 'Filter' drops selected minimizers
+    # post-hoc (read_minimizers(repeat_bf)). With a repeat_bf and no
+    # mode set, 'Indexlr' semantics apply (the initial-sketch -r path).
+    repeat_filter: str = None
     # torch device of the refinement-round re-sketches (the filter's)
     device: str = "cuda"
 
@@ -329,10 +337,17 @@ class SyntenyDetector:
                 asm.genome, mask_ivs[a], new_w, p.k
             )
             t_cond = _time.perf_counter() - t0
-            # generate_new_minimizers (bin/ntsynt_synteny.py:167-189)
+            # generate_new_minimizers (bin/ntsynt_synteny.py:167-189):
+            # 'Indexlr' passes the repeat BF to the sketcher (-r,
+            # excluded from candidacy); 'Filter' re-sketches without it
+            # and drops selected minimizers post-hoc via read_minimizers
+            sketch_repeat = p.repeat_bf if p.repeat_filter != "Filter" else None
             sk = sketch_ops.sketch_genome(
-                cond, p.k, new_w, common_bf=p.common_bf, device=p.device
+                cond, p.k, new_w, common_bf=p.common_bf, repeat_bf=sketch_repeat,
+                device=p.device,
             )
+            if p.repeat_filter == "Filter" and p.repeat_bf is not None:
+                sk = sk.subset(~p.repeat_bf.probe_np(sk.canon))
             t_sketch = _time.perf_counter() - t0
             # remap synthetic segments -> original (contig, position);
             # read_minimizers semantics: drop within-assembly duplicates
@@ -489,7 +504,18 @@ class SyntenyDetector:
             print(f"\t{label} {val}")
         if p.common_bf is not None:
             print(f"\t--common BF({p.common_bf.num_bits} bits)")
+        if p.repeat_bf is not None:
+            print(f"\t--repeat BF({p.repeat_bf.num_bits} bits)")
         sys.stdout.flush()
+
+    def print_interarrivals(self, blocks):
+        """--interarrivals diagnostic (bin/ntsynt_synteny.py:557-564)."""
+        with open(f"{self.params.prefix}.interarrivals.tsv", "w", encoding="utf-8") as f:
+            for block in blocks:
+                d = np.abs(np.diff(block.pos.astype(np.int64), axis=1))
+                for a in range(d.shape[0]):
+                    for v in d[a]:
+                        f.write(f"{v}\n")
 
     def run(self):
         """main_synteny (bin/ntsynt_synteny.py:593-647)."""
@@ -519,6 +545,8 @@ class SyntenyDetector:
         with _substage("indel+minmx"):
             blocks = self.indel_pass(blocks)
             blocks = self.min_mx_pass(blocks, 4)
+        if p.interarrivals:
+            self.print_interarrivals(blocks)
         blocks_sorted = self.block_ctx.sorted_blocks(blocks)
         if not blocks_sorted:
             raise RuntimeError(

@@ -6,12 +6,12 @@
 // the sort itself (ntsynt_tpu/ops/bloom.insert_words) exists only to
 // feed that kernel and is not ported.
 //
-// For every i with valid[i] != 0, with b = bits_log2 (16..34):
+// For every i with valid[i] != 0, with b = bits_log2 (16..36):
 //   bit  = canon[i] mod 2^b
 //   word = bit >> 5,  mask = 1 << (canon[i] & 31)
 //   words[word] |= mask
 // which is ntsynt_tpu/ops/bloom._bit_index for both its <= 32-bit and
-// its 33/34-bit branch (the latter builds the same word from canon_hi's
+// its 33..36-bit branch (the latter builds the same word from canon_hi's
 // low b-32 bits and canon_lo >> 5).
 //
 // Bound on the H100: memory. It reads 8 + 1 bytes per key, and reads and
@@ -49,7 +49,7 @@ __global__ void bf_insert_kernel(unsigned int* __restrict__ words,
 extern "C" int ntsynt_bf_insert(void* words, const void* canon, const void* valid, int64_t n,
                                 int bits_log2, void* stream) {
   if (n <= 0) return 0;
-  if (bits_log2 < 5 || bits_log2 > 34) return (int)cudaErrorInvalidValue;
+  if (bits_log2 < 5 || bits_log2 > 36) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 1048576) blocks = 1048576;  // grid-stride loop covers the rest

@@ -32,9 +32,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES = {"nthash": 0, "winmin": 0, "compact": 0, "bf_insert": 0}
+LAUNCHES = {"nthash": 0, "winmin": 0, "compact": 0, "bf_insert": 0, "bf_sweep": 0}
 # per kernel, the sizes of every counted launch: nthash (n_kmers, k),
-# winmin (n, w), compact (nw,), bf_insert (n, bits_log2)
+# winmin (n, w), compact (nw,), bf_insert (n, bits_log2), bf_sweep
+# (n, bits_log2, "insert" | "cascade")
 SHAPES = {name: [] for name in LAUNCHES}
 
 # the last build's wall seconds and whether it was reused from _build/
@@ -56,6 +57,12 @@ _SIGNATURES = {
     "ntsynt_compact_scatter": [_P, _P, _P, _I64, _P, _P, _P, _P],
     # words, canon, valid, n, bits_log2, stream
     "ntsynt_bf_insert": [_P, _P, _P, _I64, ctypes.c_int, _P],
+    # canon, valid, n, bits_log2, cell_log2, counts, stream
+    "ntsynt_bf_sweep_count": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P],
+    # canon, valid, n, bits_log2, cell_log2, cursor, binned, stream
+    "ntsynt_bf_sweep_scatter": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    # words, prev (NULL: insert), binned, offsets, n_cells, cell_log2, stream
+    "ntsynt_bf_sweep_apply": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
 }
 
 

@@ -6,13 +6,20 @@ canonical ntHash value, the bit is ``key mod m`` with m a power of two
 32-bit words held in an ``int32`` tensor: bit i is bit (i & 31) of
 word i >> 5. The reference sizes m as ceil(-G / ln(1 - fpr))
 (src/ntsynt_make_common_bf.cpp:28-40); ``pow2_bits`` rounds that to the
-nearest power of two in [2^16, 2^34].
+nearest power of two in [2^16, 2^34], or up to 2^36 for an explicit size.
 
 ``insert_words`` launches the CUDA kernel (csrc/bf_insert.cu, one
 ``atomicOr`` per valid key) for CUDA tensors and runs
 ``insert_words_plain`` for CPU tensors. Probing is a plain gather.
+
+Filters are saved in the JAX package's containers (``ntsynt_tpu_bf1``
+native, or btllib's KmerBloomFilter v6), so files cross-load between the
+packages; ``load_bf`` sniffs the container. A btllib filter whose size
+is not a power of two loads as a ``HostModBloomFilter``, probed on the
+host with an exact ``h % num_bits``.
 """
 
+import json
 import math
 
 import numpy as np
@@ -28,11 +35,13 @@ def reference_bf_bits(genome_size: int, fpr: float) -> int:
     return int(math.ceil(-genome_size / math.log(1.0 - fpr)))
 
 
-def pow2_bits(requested_bits: int) -> int:
-    """Round a bit count to the nearest power of two in [2^16, 2^34]."""
+def pow2_bits(requested_bits: int, max_log2: int = 34) -> int:
+    """Round a bit count to the nearest power of two in [2^16, 2^max_log2].
+    The default cap of 2^34 bits (2 GiB of words) is the JAX package's;
+    an explicit size (``--bf``) may go up to 2^36."""
     requested_bits = max(requested_bits, 1 << 16)
     b = int(round(math.log2(requested_bits)))
-    b = min(max(b, 16), 34)
+    b = min(max(b, 16), max_log2)
     return 1 << b
 
 
@@ -40,9 +49,9 @@ def bit_index(canon: torch.Tensor, bits_log2: int):
     """(word int64, bit-in-word int64) of bit canon mod 2^bits_log2.
 
     Equal to ntsynt_tpu/ops/bloom._bit_index in both of its branches: for
-    bits_log2 <= 32 it takes canon_lo's low bits, for 33 and 34 it
-    prepends canon_hi's low bits_log2 - 32 bits to canon_lo >> 5. Masking
-    to at most 34 bits leaves a non-negative int64, so >> is logical here.
+    bits_log2 <= 32 it takes canon_lo's low bits, for 33..36 it prepends
+    canon_hi's low bits_log2 - 32 bits to canon_lo >> 5. Masking to at
+    most 36 bits leaves a non-negative int64, so >> is logical here.
     """
     bit = canon & ((1 << bits_log2) - 1)
     return bit >> 5, canon & 31
@@ -112,13 +121,16 @@ def popcount_words(words: torch.Tensor) -> int:
     return total
 
 
+NATIVE_MAGIC = "ntsynt_tpu_bf1"
+
+
 class BloomFilter:
     """A one-hash bit-packed Bloom filter whose words live on a torch
     device."""
 
     def __init__(self, num_bits: int, k: int, device="cuda", words=None):
-        if num_bits & (num_bits - 1) or not 1 << 16 <= num_bits <= 1 << 34:
-            raise ValueError("num_bits must be a power of two in [2^16, 2^34]")
+        if num_bits & (num_bits - 1) or not 1 << 16 <= num_bits <= 1 << 36:
+            raise ValueError("num_bits must be a power of two in [2^16, 2^36]")
         self.num_bits = num_bits
         self.k = k
         self.n_words = num_bits // 32
@@ -157,3 +169,113 @@ class BloomFilter:
     def words_u32(self) -> np.ndarray:
         """The words as a host uint32 array."""
         return self.words.cpu().numpy().view(np.uint32)
+
+    def save(self, path: str, fmt: str = "native") -> str:
+        """Save the filter: fmt="native" writes the JAX package's
+        container (8-byte header length, a JSON header, then the words as
+        little-endian uint32); fmt="btllib" writes btllib's
+        KmerBloomFilter v6 container, which is lossless for power-of-two
+        filters (h % 2^n == h & (2^n - 1))."""
+        if fmt == "btllib":
+            from ..io.btllib_bf import write_btllib_bf
+
+            return write_btllib_bf(path, self.words_u32(), self.num_bits, self.k)
+        if fmt != "native":
+            raise ValueError(f"unknown Bloom filter format {fmt!r}: use 'native' or 'btllib'")
+        header = dict(magic=NATIVE_MAGIC, num_bits=self.num_bits, k=self.k, hash_fns=1)
+        with open(path, "wb") as fout:
+            hdr = json.dumps(header).encode() + b"\n"
+            fout.write(len(hdr).to_bytes(8, "little"))
+            fout.write(hdr)
+            fout.write(self.words_u32().astype("<u4").tobytes())
+        return path
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "BloomFilter":
+        """Load a native or a power-of-two btllib .bf onto device."""
+        bf = load_bf(path, device=device)
+        if not isinstance(bf, cls):
+            raise ValueError(
+                f"{path}: non-pow2 btllib filter ({bf.num_bits} bits): use "
+                "bloom.load_bf, which returns a HostModBloomFilter for it"
+            )
+        return bf
+
+    @classmethod
+    def _load_native(cls, path: str, device="cuda") -> "BloomFilter":
+        with open(path, "rb") as fin:
+            hlen = int.from_bytes(fin.read(8), "little")
+            header = json.loads(fin.read(hlen).decode())
+            if header.get("magic") != NATIVE_MAGIC:
+                raise ValueError(f"{path}: not an ntsynt_tpu Bloom filter")
+            words = np.frombuffer(fin.read(), dtype="<u4")
+        return cls.from_u32(words, header["num_bits"], header["k"], device=device)
+
+    @classmethod
+    def from_u32(cls, words_u32: np.ndarray, num_bits: int, k: int, device="cuda"):
+        """A filter from its uint32 words held on the host."""
+        words = np.ascontiguousarray(words_u32, dtype=np.uint32)
+        if words.shape != (num_bits // 32,):
+            raise ValueError(f"expected {num_bits // 32} words, got {words.shape}")
+        t = torch.from_numpy(words.view(np.int32).copy()).to(resolve_device(device))
+        return cls(num_bits, k, words=t)
+
+
+def load_bf(path: str, device="cuda"):
+    """Load a .bf of either package or of btllib, sniffing the container:
+    btllib KmerBloomFilter v6 -> BloomFilter when its size is a power of
+    two, else HostModBloomFilter; the native container -> BloomFilter."""
+    from ..io import btllib_bf
+
+    if btllib_bf.sniff_btllib(path):
+        return btllib_bf.load_btllib_bf(path, device=device)
+    return BloomFilter._load_native(path, device=device)
+
+
+class HostModBloomFilter:
+    """Exact ``h % num_bits`` Bloom filter for any bit count: the shape of
+    reference-built btllib filters (src/ntsynt_make_common_bf.cpp sizes
+    by -genome/ln(1-fpr)). The device's mask-modulo needs a power of two,
+    so these are probed on the host (NumPy uint64 modulo is exact); the
+    sketch probes each segment's canonical hashes through ``probe``."""
+
+    def __init__(self, num_bits: int, k: int, bits: np.ndarray):
+        self.num_bits = int(num_bits)
+        self.k = k
+        self.bits = bits  # packed uint8, btllib layout (bit i -> byte i//8, 1<<(i%8))
+
+    @classmethod
+    def from_bytes(cls, data: bytes, num_bits: int, k: int) -> "HostModBloomFilter":
+        return cls(num_bits, k, np.frombuffer(data, dtype=np.uint8).copy())
+
+    @property
+    def bits_log2(self):
+        raise ValueError(
+            "HostModBloomFilter is not pow2-sized; device mask-modulo "
+            "probing does not apply (probe on host via probe_np)"
+        )
+
+    def probe_np(self, canon: np.ndarray) -> np.ndarray:
+        canon = np.asarray(canon, dtype=np.uint64)
+        idx = canon % np.uint64(self.num_bits)
+        byte = (idx >> np.uint64(3)).astype(np.int64)
+        return (self.bits[byte] >> (idx & np.uint64(7)).astype(np.uint8)) & 1 != 0
+
+    def probe(self, canon: torch.Tensor) -> torch.Tensor:
+        """Probe int64 canonical hashes (any device) on the host; the
+        verdicts come back on canon's device."""
+        hit = self.probe_np(canon.cpu().numpy().view(np.uint64))
+        return torch.from_numpy(hit).to(canon.device)
+
+    def save(self, path: str, fmt: str = "btllib") -> str:
+        """btllib is the only container that keeps a non-pow2 modulus."""
+        from ..io.btllib_bf import write_btllib_bf_bytes
+
+        if fmt != "btllib":
+            raise ValueError("HostModBloomFilter only serializes as btllib")
+        if self.num_bits % 8 != 0:
+            raise ValueError(
+                f"num_bits {self.num_bits} not a byte multiple: btllib "
+                "probes h % (bytes*8), which would change membership"
+            )
+        return write_btllib_bf_bytes(path, self.bits[: self.num_bits // 8].tobytes(), self.k)

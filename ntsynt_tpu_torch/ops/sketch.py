@@ -1,7 +1,7 @@
 """Minimizer sketching of whole genomes (indexlr replacement).
 
 Replaces the btllib ``indexlr`` binary (``-k -w --long --seq --pos
-[-s common.bf]``, bin/ntsynt_run_pipeline.smk:85) and its re-invocation
+[-s common.bf] [-r repeat.bf]``, bin/ntsynt_run_pipeline.smk:85) and its re-invocation
 in refinement rounds (bin/ntsynt_synteny.py:173-182):
 
   1. All contigs of a genome are concatenated into one code stream with
@@ -9,7 +9,8 @@ in refinement rounds (bin/ntsynt_synteny.py:173-182):
      contig boundary; a host-built legit-window mask marks the windows
      that exist in per-contig semantics.
   2. The stream lives on the device and ops/sketch_device selects the
-     minimizers (hash, common-BF probe, window argmin, compaction).
+     minimizers (hash, common- and repeat-BF probes, window argmin,
+     compaction).
   3. Selected stream positions are mapped back to (contig, position);
      hashes are the printed ntHash values, positions 0-based k-mer
      starts.
@@ -45,6 +46,14 @@ class GenomeSketch:
     @property
     def n_minimizers(self) -> int:
         return len(self.positions)
+
+    def subset(self, keep: np.ndarray) -> "GenomeSketch":
+        """New sketch restricted to the boolean mask ``keep``."""
+        return GenomeSketch(
+            name=self.name, k=self.k, w=self.w, contig_names=self.contig_names,
+            contig_idx=self.contig_idx[keep], positions=self.positions[keep],
+            hashes=self.hashes[keep], canon=self.canon[keep],
+        )
 
 
 class _Stream:
@@ -110,15 +119,18 @@ class DeviceStream:
         self.legit = torch.from_numpy(self.stream.legit_windows()).to(device)
 
 
-def sketch_genome(genome, k: int, w: int, common_bf=None, device="cuda",
+def sketch_genome(genome, k: int, w: int, common_bf=None, repeat_bf=None, device="cuda",
                   codes: np.ndarray | None = None, prepared: DeviceStream | None = None
                   ) -> GenomeSketch:
     """Compute the (k, w) minimizer sketch of a genome.
 
     Args:
       genome: io.fasta.PackedGenome.
-      common_bf: optional ops.bloom.BloomFilter on ``device``; only k-mers
-        it holds are minimizer candidates (indexlr -s).
+      common_bf: optional ops.bloom.BloomFilter on ``device`` (or a
+        HostModBloomFilter, probed on the host); only k-mers it holds are
+        minimizer candidates (indexlr -s).
+      repeat_bf: optional filter of the same kinds; k-mers it holds are
+        not candidates (indexlr -r).
       device: torch device the sketch runs on.
       codes: optional override of genome.codes (refinement rounds sketch
         a masked copy).
@@ -129,7 +141,8 @@ def sketch_genome(genome, k: int, w: int, common_bf=None, device="cuda",
         prepared = DeviceStream(genome, k, w, resolve_device(device), codes=codes)
     ds = prepared
     stream = ds.stream
-    sel, selh = sketch_stream(ds.codes, ds.legit, k, w, common_bf=common_bf)
+    sel, selh = sketch_stream(ds.codes, ds.legit, k, w, common_bf=common_bf,
+                              repeat_bf=repeat_bf)
     cidx, cpos = stream.to_contig_pos(sel)
 
     # short-contig fallback (one window over all k-mers), host-side
@@ -140,6 +153,8 @@ def sketch_genome(genome, k: int, w: int, common_bf=None, device="cuda",
         canon, out, valid = nthash.hash_sequence_np(src[o : o + ln], k)
         if common_bf is not None:
             valid = valid & common_bf.probe_np(canon)
+        if repeat_bf is not None:
+            valid = valid & ~repeat_bf.probe_np(canon)
         if valid.any():
             keys = np.where(valid, out, np.uint64(0xFFFFFFFFFFFFFFFF))
             a = int(np.argmin(keys))

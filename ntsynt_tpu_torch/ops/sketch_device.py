@@ -1,8 +1,10 @@
 """Filtered minimizer sketch of one device-resident code stream.
 
 Per segment of windows: hash every k-mer (K1, ops/nthash), drop k-mers
-that are invalid or absent from the common Bloom filter by setting their
-key to the all-ones sentinel (a plain gather probe, ops/bloom), take
+that are invalid, absent from the common Bloom filter or present in the
+repeat Bloom filter by setting their key to the all-ones sentinel (a
+plain gather probe, ops/bloom; a HostModBloomFilter is probed on the
+host instead), take
 each window's leftmost argmin and min hash (K2, ops/winmin), and compact
 the run starts of the argmin sequence over live windows (legit and
 holding a valid k-mer) into dense (position, hash) arrays (K3, this
@@ -95,14 +97,17 @@ def dedupe_pos_hash(pos: np.ndarray, h: np.ndarray):
     return pos[new], h[new]
 
 
-def sketch_stream(codes, legit, k: int, w: int, common_bf=None, seg: int = SEG_WINDOWS):
+def sketch_stream(codes, legit, k: int, w: int, common_bf=None, repeat_bf=None,
+                  seg: int = SEG_WINDOWS):
     """Selected minimizers of a code stream.
 
     Args:
       codes: uint8 [>= n_windows + w + k - 2] code stream on the device.
       legit: bool [n_windows] legit-window mask on the same device.
-      common_bf: optional ops.bloom.BloomFilter: k-mers it does not hold
-        are not candidates (indexlr -s).
+      common_bf: optional ops.bloom.BloomFilter or HostModBloomFilter:
+        k-mers it does not hold are not candidates (indexlr -s).
+      repeat_bf: optional filter of the same kinds: k-mers it holds are
+        not candidates (indexlr -r).
     Returns (positions int64, hashes uint64) as host arrays: the sorted
     unique selected k-mer stream positions and their printed hashes.
     """
@@ -112,8 +117,12 @@ def sketch_stream(codes, legit, k: int, w: int, common_bf=None, seg: int = SEG_W
         m = min(seg, nwin - s)
         nk = m + w - 1
         key, canon, valid = nthash.hash_kmers(codes[s : s + nk + k - 1], k, nk)
-        if common_bf is not None:
-            solid = valid & common_bf.probe(canon)
+        if common_bf is not None or repeat_bf is not None:
+            solid = valid
+            if common_bf is not None:
+                solid = solid & common_bf.probe(canon)
+            if repeat_bf is not None:
+                solid = solid & ~repeat_bf.probe(canon)
             key = torch.where(solid, key, torch.full_like(key, nthash.SENTINEL))
         del canon, valid
         arg, minv = winmin.window_argmin(key, w)

@@ -73,7 +73,7 @@ def test_common_bf_cascade_matches(genomes):
 def test_filtered_sketch_matches(genomes, w):
     jg = [j_read_fasta(p) for p in genomes]
     j_bf = j_bf_build.build_common_bf(jg, K, fpr=0.025, chunk=1 << 15)
-    t_bf = convert.bf_from_numpy(np.asarray(j_bf.words), j_bf.num_bits, K, device="cpu")
+    t_bf = bloom.BloomFilter.from_u32(np.asarray(j_bf.words), j_bf.num_bits, K, device="cpu")
     for path, g in zip(genomes, jg):
         ref = j_sketch.sketch_genome(g, K, w, common_bf=j_bf, chunk=1 << 14, engine="chunk")
         got = convert.sketch_to_numpy(
@@ -106,7 +106,7 @@ def test_unfiltered_sketch_and_segments_match(genomes):
 def test_bloom_filter_roundtrip_and_probe():
     rng = np.random.default_rng(3)
     words = rng.integers(0, 1 << 32, (1 << 16) // 32, dtype=np.uint64).astype(np.uint32)
-    bf = convert.bf_from_numpy(words, 1 << 16, K, device="cpu")
+    bf = bloom.BloomFilter.from_u32(words, 1 << 16, K, device="cpu")
     np.testing.assert_array_equal(bf.words_u32(), words)
     canon = rng.integers(0, 1 << 64, 1000, dtype=np.uint64)
     bits = np.unpackbits(words.view(np.uint8), bitorder="little").astype(bool)
@@ -151,7 +151,7 @@ def test_kernel_sources_carry_their_notes():
 
     srcs = _kernels.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "bf_insert.cu", "compact.cu", "nthash.cu", "winmin.cu"
+        "bf_insert.cu", "bf_sweep.cu", "compact.cu", "nthash.cu", "winmin.cu"
     ]
     for s in srcs:
         text = open(s).read()
