@@ -9,7 +9,11 @@ Phases, each printing one JSON line with its elapsed seconds:
      ntsynt_tpu_torch/_build/ by source hash);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      same inputs (made from a seed), at the shapes the main path gives
-     it; outputs must be bit-identical (max_abs_err 0);
+     it and at the edges of K2's and K4's designs; outputs must be
+     bit-identical (max_abs_err 0). K2 and K4 report their device time
+     (ms: launches captured in a CUDA graph, its replay timed) apart from
+     their wrapper's (wrapper_ms: a timed loop of calls), K4 also the
+     repeat walk's shape, a 2^34-bit filter and its bin/apply split;
   4. main path: two 100 Mbp genomes (0.1% SNPs, one 50 kb inversion) are
      generated into a temporary directory and run through the port's CLI
      (``python -m ntsynt_tpu_torch a.fa b.fa -d 1``) on the card; the
@@ -17,7 +21,8 @@ Phases, each printing one JSON line with its elapsed seconds:
      of the path must have launched; prints each launch's sizes and the
      run's peak device memory;
   5. winmin_refine: the window-argmin kernel against its plain version at
-     the key counts the main path's refinement rounds gave it;
+     the key counts the main path's refinement rounds gave it, with its
+     device time and its wrapper's time;
   6. sweep path: the 2 x 100 Mbp cascade built through the binned sweep
      (NTSYNT_BF_SWEEP=1) must equal the atomic-OR cascade word for word,
      and the CLI run with the sweep on must write the main path's blocks,
@@ -52,7 +57,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 GENOME_BP = 100_000_000
 INV_BP = 50_000
 FILTER_LOG2 = 32  # the common filter's size at 100 Mbp (--fpr 0.025)
-WIDE_LOG2 = 36  # the largest filter --bf may ask for: canon's high bits index its words
 # the kernels each path launches (bf_insert builds the repeat filter on
 # the --filter paths; the sweep path's cascade never runs it)
 PATH_KERNELS = {
@@ -75,8 +79,9 @@ def phase(name: str, info: dict):
 
 
 def cuda_time_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of fn on the card (CUDA events, after
-    one warm-up call)."""
+    """Mean milliseconds per call of fn on the card (CUDA events around a
+    Python loop of calls, after one warm-up call): device time where the
+    card is busy, the wrapper's host time where it waits between calls."""
     import torch
 
     fn()
@@ -88,6 +93,34 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fns, reps: int = 10) -> float:
+    """Mean device milliseconds per call: reps calls (cycling through fns,
+    a callable or a list of them) captured in one CUDA graph, whose replay
+    is timed with CUDA events after a warm-up replay. The host's time in
+    the wrappers between launches is not counted, as it is by
+    cuda_time_ms."""
+    import torch
+
+    fns = fns if isinstance(fns, (list, tuple)) else [fns]
+    fns[0]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def max_abs_err(a, b) -> float:
@@ -227,19 +260,79 @@ def find_inversion(rows, inv_start: int, inv_end: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_winmin(winmin, keys, w: int) -> dict:
-    """K2 vs its plain version on keys at window w: check and time."""
+def time_winmin(winmin, keys, w: int, reps: int = 10) -> dict:
+    """K2 vs its plain version on keys at window w: check, then time its
+    device time (ms, a CUDA graph of launches) and its wrapper's time
+    (wrapper_ms, a loop of calls)."""
+    from ntsynt_tpu_torch.ops import _kernels
+
     arg, minv = winmin.window_argmin(keys, w)
     parg, pminv = winmin.window_argmin_plain(keys, w)
     err = require_equal(f"K2 w={w}", [(arg, parg), (minv, pminv)])
+    del arg, minv, parg, pminv
     m = keys.shape[0]
     return dict(
         max_abs_err=err,
-        ms=cuda_time_ms(lambda: winmin.window_argmin(keys, w), 5),
+        ms=device_ms(lambda: winmin.window_argmin(keys, w), reps),
+        wrapper_ms=cuda_time_ms(lambda: winmin.window_argmin(keys, w), reps),
         plain_ms=cuda_time_ms(lambda: winmin.window_argmin_plain(keys, w), 1),
         bound_ms=(8 * m + 16 * (m - w + 1)) / HBM_BYTES_PER_S * 1e3,
+        plan=list(winmin.winmin_plan(m, w, _kernels.sm_count(keys.device.index))),
         shape=f"{m} keys, w={w}",
     )
+
+
+# the edges of K2's and K4's designs, as in tests/test_torch_redesign.py
+K2_EDGE_WS = (1, 10, 37, 100, 250, 1000, 4095, 10_000)
+K4_EDGE_BITS = (16, 20, 32, 33, 34, 35, 36)
+
+
+def k2_edges(torch, dev, winmin, rng) -> int:
+    """K2 vs its plain version at every edge w: n = w, w + 1, not a
+    multiple of G*w, and 2^20 + 3; random and tie-heavy keys (few
+    distinct values, so runs of equal minima); an unaligned view."""
+    cases = 0
+    for w in K2_EDGE_WS:
+        g = max((winmin.TILE_KEYS - 2) // w - 1, 1)  # w-blocks in a full tile
+        for n in (w, w + 1, 3 * g * w + 17, (1 << 20) + 3):
+            rand = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+            ties = (rng.integers(0, 5, n, dtype=np.int64) << 60).astype(np.int64)
+            ties[rng.random(n) < 0.3] = -1
+            for label, keys_np in (("random", rand), ("ties", ties)):
+                keys = torch.from_numpy(keys_np).to(dev)
+                require_equal(f"K2 {label} w={w} n={n}", zip(winmin.window_argmin(keys, w),
+                                                             winmin.window_argmin_plain(keys, w)))
+                cases += 1
+        keys = torch.from_numpy(ties).to(dev)[1:]  # not 16-byte aligned
+        require_equal(f"K2 unaligned w={w}", zip(winmin.window_argmin(keys, w),
+                                                 winmin.window_argmin_plain(keys, w)))
+        cases += 1
+    return cases
+
+
+def k4_edges(torch, bloom, canon, valid) -> int:
+    """K4's direct route, binned route and insert_words vs the plain
+    version: at every edge filter size on 2^22 + 3 keys (not a multiple
+    of a tile), and n = 1, all keys invalid, every key in one cell, and
+    the repeat walk's 2^20 keys into 2^33 bits."""
+    m = (1 << 22) + 3
+    cases = [(bits, canon[:m], valid[:m]) for bits in K4_EDGE_BITS]
+    cases += [(32, canon[:1], valid[:1]),
+              (32, canon[:100_001], torch.zeros_like(valid[:100_001])),
+              (32, canon[: 1 << 22] & ((1 << 20) - 1) | (5 << 20), valid[: 1 << 22]),
+              (33, canon[: 1 << 20], valid[: 1 << 20])]
+    for bits, c, v in cases:
+        ref = bloom.insert_words_plain(
+            torch.zeros((1 << bits) // 32, dtype=torch.int32, device=c.device), c, v, bits)
+        for insert in (bloom.insert_direct, bloom.insert_binned, bloom.insert_words):
+            words = torch.zeros_like(ref)
+            insert(words, c, v, bits)
+            require_equal(f"K4 {insert.__name__} 2^{bits} bits, {c.shape[0]} keys",
+                          [(words, ref)])
+            del words
+        del ref
+        torch.cuda.empty_cache()
+    return len(cases)
 
 
 def phase_kernels(torch, dev, kernels: dict) -> None:
@@ -267,18 +360,14 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     )
     del pk, pc, pv
 
-    # K2 at the main path's w; the refinement rounds' shapes are timed
-    # after the main path has recorded them (phase_winmin_refine)
+    # K2 at the main path's w (and a streamed w past the staging limit);
+    # the refinement rounds' shapes are timed after the main path has
+    # recorded them (phase_winmin_refine)
     k2 = time_winmin(winmin, key, 1000)
+    k2_stream = time_winmin(winmin, key, 10_000, reps=5)
     arg_main, minv_main = winmin.window_argmin(key, 1000)
-    # ties: few distinct keys, so runs of equal minima across windows
-    tie_np = (rng.integers(0, 5, 1 << 20, dtype=np.int64) << 60).astype(np.int64)
-    tie_np[rng.random(1 << 20) < 0.3] = -1
-    ties = torch.from_numpy(tie_np).to(dev)
-    for w in (1000, 100, 37, 10, 1):
-        require_equal(f"K2 ties w={w}", zip(winmin.window_argmin(ties, w),
-                                            winmin.window_argmin_plain(ties, w)))
-    kernels["winmin"].update(k2, by_w={"1000": k2})
+    k2["edge_cases"] = k2_edges(torch, dev, winmin, rng)
+    kernels["winmin"].update(k2, by_w={"1000": k2, "10000": k2_stream})
 
     # K3 on K2's output, with contig gaps in the legit mask
     nw = arg_main.shape[0]
@@ -307,22 +396,69 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     pwords = bloom.insert_words_plain(torch.zeros_like(words), canon, valid, bits)
     err = require_equal("K4", [(words, pwords)])
     del pwords
-    # filters past 2^32 bits take canon's high bits into the word index
-    w34 = torch.zeros((1 << WIDE_LOG2) // 32, dtype=torch.int32, device=dev)
-    sub = slice(0, 1 << 22)
-    bloom.insert_words(w34, canon[sub].contiguous(), valid[sub].contiguous(), WIDE_LOG2)
-    p34 = bloom.insert_words_plain(torch.zeros_like(w34), canon[sub], valid[sub], WIDE_LOG2)
-    require_equal(f"K4 {WIDE_LOG2}-bit", [(w34, p34)])
-    del w34, p34
+    # every route at the edges of the design, filters up to 2^36 bits
+    # (canon's high bits index their words) among them
+    k4_cases = k4_edges(torch, bloom, canon, valid)
     # only the words that valid keys hit must be read and written
     hit_words = torch.unique(bloom.bit_index(canon[valid], bits)[0]).numel()
     k4_bound = (9 * n + 8 * hit_words) / HBM_BYTES_PER_S * 1e3
+    # where the binned route's time goes: steps 1-2 (count, scan, the
+    # partition passes) and step 3 (the per-cell apply), each timed
+    # alone; and the direct route (one global atomicOr per key, the
+    # kernel's former design) beside it
+    binned, offsets = bloom.bin_keys(canon, valid, bits)
+    stage_ms = dict(
+        bin=device_ms(lambda: bloom.bin_keys(canon, valid, bits)),
+        apply=device_ms(lambda: bloom.apply_bins(words, binned, offsets, bits)),
+    )
+    del binned, offsets
+    direct_ms = device_ms(lambda: bloom.insert_direct(words, canon, valid, bits))
+    # the repeat walk's shape: 2^20 keys into 2^33 bits, a new segment's
+    # keys in each call (the walk finds the filter cold)
+    rbits, m = 33, 1 << 20
+    rwords = torch.zeros((1 << rbits) // 32, dtype=torch.int32, device=dev)
+    segs = [(canon[i * m:(i + 1) * m], valid[i * m:(i + 1) * m]) for i in range(10)]
+    r_hits = torch.unique(bloom.bit_index(segs[0][0][segs[0][1]], rbits)[0]).numel()
+    repeat_walk = dict(
+        route=bloom.insert_route(m, rbits),
+        ms=device_ms([lambda c=c, v=v: bloom.insert_words(rwords, c, v, rbits) for c, v in segs]),
+        wrapper_ms=cuda_time_ms(lambda: bloom.insert_words(rwords, *segs[0], rbits), 10),
+        direct_ms=device_ms([lambda c=c, v=v: bloom.insert_direct(rwords, c, v, rbits)
+                             for c, v in segs]),
+        binned_ms=device_ms([lambda c=c, v=v: bloom.insert_binned(rwords, c, v, rbits)
+                             for c, v in segs]),
+        plain_ms=cuda_time_ms(lambda: bloom.insert_words_plain(rwords, *segs[0], rbits), 2),
+        bound_ms=(9 * m + 8 * r_hits) / HBM_BYTES_PER_S * 1e3,
+        shape=f"{m} keys into 2^{rbits} bits ({r_hits} distinct words hit)",
+    )
+    del rwords, segs
+    # the 3 x 1 Gbp common filter's size: 2^26 keys into 2^34 bits, both
+    # routes (the wrapper bins: half a key per 8 words)
+    gbits = 34
+    gwords = torch.zeros((1 << gbits) // 32, dtype=torch.int32, device=dev)
+    g_hits = torch.unique(bloom.bit_index(canon[valid], gbits)[0]).numel()
+    gigabase_filter = dict(
+        route=bloom.insert_route(n, gbits),
+        ms=device_ms(lambda: bloom.insert_words(gwords, canon, valid, gbits), 5),
+        direct_ms=device_ms(lambda: bloom.insert_direct(gwords, canon, valid, gbits), 5),
+        bound_ms=(9 * n + 8 * g_hits) / HBM_BYTES_PER_S * 1e3,
+        shape=f"{n} keys into 2^{gbits} bits ({g_hits} distinct words hit)",
+    )
+    del gwords
+    torch.cuda.empty_cache()
     kernels["bf_insert"].update(
         max_abs_err=err,
-        ms=cuda_time_ms(lambda: bloom.insert_words(words, canon, valid, bits), 10),
+        ms=device_ms(lambda: bloom.insert_words(words, canon, valid, bits)),
+        wrapper_ms=cuda_time_ms(lambda: bloom.insert_words(words, canon, valid, bits), 10),
         plain_ms=cuda_time_ms(lambda: bloom.insert_words_plain(words, canon, valid, bits), 2),
         bound_ms=k4_bound,
         shape=f"{n} keys into 2^{bits} bits ({hit_words} distinct words hit)",
+        route=bloom.insert_route(n, bits),
+        stage_ms=stage_ms,
+        direct_ms_same_shape=direct_ms,
+        repeat_walk=repeat_walk,
+        gigabase_filter=gigabase_filter,
+        edge_cases=k4_cases,
     )
 
     # K5, insert: the same keys into the same filter size, against its
@@ -599,7 +735,8 @@ def main() -> int:
     with phase("kernels", {}) as info:
         phase_kernels(torch, dev, kernels)
         info["kernels"] = {n: {k: v for k, v in d.items() if k in
-                               ("max_abs_err", "ms", "plain_ms", "bound_ms", "shape")}
+                               ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                           "shape")}
                            for n, d in kernels.items()}
 
     tmp = tempfile.mkdtemp(prefix="ntsynt_smoke_")

@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Time K2 (window argmin) and K4 (Bloom-filter insert) of one checkout of
+ntsynt_tpu_torch on one CUDA card, through their public wrappers, so that
+two commits can be compared on the same card in one run:
+
+    python3 kernel_ab.py --root OLD_CHECKOUT --out a.json
+    python3 kernel_ab.py --root . --out b.json
+
+Each shape reports ms (device time: launches captured in one CUDA graph,
+its replay timed with CUDA events) and wrapper_ms (CUDA events around a
+Python loop of the same calls, which counts the wrapper's host time
+wherever the card waits for it), with chip_smoke.py's timers. Inputs
+are random 64-bit keys made from --seed with numpy. K4 at the repeat
+walk's shape inserts a new segment's keys in each call, as the walk
+does.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+# (keys, w): the main path's segment at the default w, and the largest
+# key counts the 2 x 100 Mbp main path's refinement rounds gave K2
+K2_SHAPES = [(1 << 26, 1000), (12_102, 250), (3_370, 100), (3_370, 10)]
+# (keys, bits): the main path's segment into the 100 Mbp common filter,
+# and the repeat walk's segment into the 2^33-bit repeat filter
+K4_SHAPES = [(1 << 26, 32), (1 << 20, 33)]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True, help="checkout holding ntsynt_tpu_torch/")
+    ap.add_argument("--out", required=True, help="JSON file to write")
+    ap.add_argument("--seed", type=int, default=20261017)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    if not os.path.isfile(os.path.join(root, "ntsynt_tpu_torch", "__init__.py")):
+        print(f"kernel_ab.py: no ntsynt_tpu_torch/ in {root}", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab.py: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from chip_smoke import cuda_time_ms, device_ms
+
+    sys.path.insert(0, root)
+    from ntsynt_tpu_torch.ops import bloom, winmin
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(args.seed)
+    big = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, 1 << 26,
+                                        dtype=np.int64)).to(dev)
+    valid = torch.from_numpy(rng.random(1 << 26) < 0.999).to(dev)
+    out = {"root": root, "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+               capture_output=True, text=True, timeout=60).stdout.strip(),
+           "k2": [], "k4": []}
+    for n, w in K2_SHAPES:
+        keys = big[:n].clone()
+        reps = args.reps if n < 1 << 20 else 5
+        out["k2"].append(dict(
+            keys=n, w=w,
+            ms=device_ms(lambda: winmin.window_argmin(keys, w), reps),
+            wrapper_ms=cuda_time_ms(lambda: winmin.window_argmin(keys, w), reps)))
+    for n, bits in K4_SHAPES:
+        words = torch.zeros((1 << bits) // 32, dtype=torch.int32, device=dev)
+        segs = [(big[i * n:(i + 1) * n], valid[i * n:(i + 1) * n])
+                for i in range(min(10, (1 << 26) // n))]
+        fns = [lambda c=c, v=v: bloom.insert_words(words, c, v, bits) for c, v in segs]
+        out["k4"].append(dict(
+            keys=n, bits=bits, ms=device_ms(fns, 10),
+            wrapper_ms=cuda_time_ms(fns[0], 10)))
+        del words
+        torch.cuda.empty_cache()
+    with open(args.out, "w") as fout:
+        json.dump(out, fout, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

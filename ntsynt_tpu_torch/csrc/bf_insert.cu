@@ -2,11 +2,11 @@
 //
 // Replaces the Pallas TPU kernel ntsynt_tpu/ops/bf_place.py
 // (_place_kernel, launched by _place_call / place_sorted), which ORs a
-// SORTED list of (word, single-bit mask) pairs into the filter words;
-// the sort itself (ntsynt_tpu/ops/bloom.insert_words) exists only to
-// feed that kernel and is not ported.
+// SORTED list of (word, single-bit mask) pairs into the filter words in
+// one streaming pass; the sort itself (ntsynt_tpu/ops/bloom.insert_words)
+// exists only to feed that kernel and is not ported.
 //
-// For every i with valid[i] != 0, with b = bits_log2 (16..36):
+// For every i with valid[i] != 0, with b = bits_log2 (5..36):
 //   bit  = canon[i] mod 2^b
 //   word = bit >> 5,  mask = 1 << (canon[i] & 31)
 //   words[word] |= mask
@@ -17,35 +17,342 @@
 // Bound on the H100: memory. It reads 8 + 1 bytes per key, and reads and
 // writes each distinct filter word that a valid key hits (4 bytes each
 // way; words no key hits need not move), at 3.35 TB/s. 2^26 random keys
-// hit about 39% of a 2^32-bit filter's 2^27 words. In practice each
-// insert is a random 32-byte sector touched by an atomic, so the kernel
-// runs at the L2 atomic rate.
+// hit about 39% of a 2^32-bit filter's 2^27 words. One global atomicOr
+// per key instead makes every insert a random 32-byte sector
+// read-modify-write that misses the 50 MB L2 (the filter is 512 MiB):
+// about 14 G atomics/s, 16x the bound. Scattering each key's 4-byte bit
+// index straight to its cell's list costs about as much: one
+// partial-sector write per key.
 //
-// Design: one thread per key, one atomicOr on the 32-bit word. OR is
-// commutative and idempotent, so the result is independent of order and
-// of duplicates, with no sort and no run merging.
+// Design: the Hopper counterpart of the TPU's sorted streaming pass is a
+// cheap partition of the keys by filter cell followed by a shared-memory
+// apply. A cell is 2^cell_log2 words (2^15: 2^20 bits, 128 KiB, one
+// block's shared memory); a filter under one cell is one cell. With
+// 2^c cells (c up to 16: 65,536 cells at 2^36 bits):
+//   (1) count: persistent blocks histogram the cells of sub-chunks of at
+//       most 65,534 keys in shared memory with 16-bit counters (two to a
+//       word, so 2^16 cells take 128 KiB) and add the non-zero ones to
+//       the global per-cell counts; the wrapper scans them into offsets
+//       (torch.cumsum).
+//   (2) partition, one pass for c <= 8, else two (an MSD radix
+//       partition): the first by the top c_a = c - c/2 bits of the cell,
+//       the second, within each of those 2^c_a ranges, by the low c/2
+//       bits. Each pass sorts a tile of 4,096 items by digit (at most 256)
+//       in shared memory, reserves each digit's run with one global
+//       atomicAdd on that digit's cursor, and writes the runs coalesced.
+//       Keys are read with 16-byte loads marked streaming; the second
+//       pass loads its next tile while it sorts the current one.
+//   (3) apply: one block per cell. A cell with fewer keys than one per 16
+//       of its words ORs them with direct global atomics: loading and
+//       storing 128 KiB (8 bytes a word) costs more than a 32-byte sector
+//       atomic per key below that density (measured on the H100: 0.004
+//       ns per word swept by K5's apply, 0.07 ns per direct atomic). A denser
+//       cell is loaded with 16-byte loads (eight in flight per thread),
+//       its keys are ORed in with shared-memory atomicOr, and it is stored
+//       back.
+// A whole segment below that density (n < words / 16: the repeat walk's
+// 2^20 keys into 2^33 bits) skips the partition and takes one global
+// atomicOr per key (ntsynt_bf_insert); the wrapper chooses by n and b
+// alone. OR is commutative and idempotent, so neither the order within a
+// cell nor duplicates change the result. Word offsets are 64-bit (2^31
+// words at 2^36 bits).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int COUNT_THREADS = 1024;
+constexpr int COUNT_SUB = 65534;      // keys per 16-bit histogram
+constexpr int PART_THREADS = 512;
+constexpr int PART_ITEMS = 8;         // items per thread per tile
+constexpr int PART_TILE = PART_THREADS * PART_ITEMS;
+constexpr int MAX_DIGITS_LOG2 = 8;
+constexpr int APPLY_BATCH = 8;        // 16-byte loads in flight per thread
+constexpr int MAX_CELL_LOG2 = 15;     // 128 KiB of shared-memory words
+constexpr int MAX_CELLS_LOG2 = 16;    // 128 KiB of 16-bit counters
+constexpr int DIRECT_WORDS_PER_KEY = 16;
+constexpr unsigned NONE = 0xFFFFFFFFu;
+
 __global__ void bf_insert_kernel(unsigned int* __restrict__ words,
                                  const long long* __restrict__ canon,
                                  const uint8_t* __restrict__ valid, int64_t n, int bits_log2) {
-  const unsigned long long bit_mask =
-      bits_log2 >= 64 ? ~0ull : ((1ull << bits_log2) - 1ull);
+  const unsigned long long bit_mask = (1ull << bits_log2) - 1ull;
   int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     if (!valid[i]) continue;
     unsigned long long h = (unsigned long long)canon[i];
-    unsigned long long word = (h & bit_mask) >> 5;
-    atomicOr(words + word, 1u << (unsigned)(h & 31ull));
+    atomicOr(words + ((h & bit_mask) >> 5), 1u << (unsigned)(h & 31ull));
   }
+}
+
+// Two keys at i, i + 1 (i even) with one 16-byte and one 2-byte load,
+// marked streaming: the keys are read once. *bits gets each valid key's
+// bit (mod 2^b), or NONE's 64-bit form.
+__device__ __forceinline__ void load_pair(const long long* __restrict__ canon,
+                                          const uint8_t* __restrict__ valid, int64_t i,
+                                          int64_t n, unsigned long long bit_mask,
+                                          unsigned long long* bits) {
+  bits[0] = bits[1] = ~0ull;
+  if (i + 1 < n) {
+    longlong2 c = __ldcs(reinterpret_cast<const longlong2*>(canon + i));
+    uchar2 v = __ldcs(reinterpret_cast<const uchar2*>(valid + i));
+    if (v.x) bits[0] = (unsigned long long)c.x & bit_mask;
+    if (v.y) bits[1] = (unsigned long long)c.y & bit_mask;
+  } else if (i < n && valid[i]) {
+    bits[0] = (unsigned long long)canon[i] & bit_mask;
+  }
+}
+
+__global__ void cell_count_kernel(const long long* __restrict__ canon,
+                                  const uint8_t* __restrict__ valid, int64_t n,
+                                  unsigned long long bit_mask, int cell_shift, int n_cells,
+                                  int* __restrict__ counts) {
+  extern __shared__ unsigned hist[];  // 16-bit counters, two per word
+  const int n_words = (n_cells + 1) / 2;
+  for (int64_t s0 = (int64_t)blockIdx.x * COUNT_SUB; s0 < n; s0 += (int64_t)gridDim.x * COUNT_SUB) {
+    for (int c = threadIdx.x; c < n_words; c += blockDim.x) hist[c] = 0;
+    __syncthreads();
+    const int64_t s1 = s0 + COUNT_SUB < n ? s0 + COUNT_SUB : n;
+    for (int64_t i = s0 + 2 * threadIdx.x; i < s1; i += 2 * blockDim.x) {
+      unsigned long long bits[2];
+      load_pair(canon, valid, i, s1, bit_mask, bits);
+      for (int u = 0; u < 2; ++u) {
+        if (bits[u] == ~0ull) continue;
+        unsigned c = (unsigned)(bits[u] >> cell_shift);
+        atomicAdd(hist + (c >> 1), 1u << (16 * (c & 1)));
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < n_cells; c += blockDim.x) {
+      unsigned v = (hist[c >> 1] >> (16 * (c & 1))) & 0xFFFFu;
+      if (v) atomicAdd(counts + c, (int)v);
+    }
+    __syncthreads();
+  }
+}
+
+// One tile of at most PART_TILE items, each (digit, value) or NONE:
+// sort by digit in shared memory, reserve each digit's run at
+// cursor[digit], write the runs to dst coalesced.
+struct PartSmem {
+  unsigned hist[1 << MAX_DIGITS_LOG2];
+  unsigned start[1 << MAX_DIGITS_LOG2];
+  unsigned base[1 << MAX_DIGITS_LOG2];
+  unsigned total;
+  unsigned val[PART_TILE];
+  unsigned char dig[PART_TILE];
+};
+
+__device__ __forceinline__ void partition_tile(PartSmem& sm, const unsigned (&digit)[PART_ITEMS],
+                               const unsigned (&value)[PART_ITEMS], int n_digits,
+                               int* __restrict__ cursor, unsigned* __restrict__ dst) {
+  const int tid = threadIdx.x;
+  for (int d = tid; d < n_digits; d += PART_THREADS) sm.hist[d] = 0;
+  __syncthreads();
+  unsigned rank[PART_ITEMS];
+#pragma unroll
+  for (int u = 0; u < PART_ITEMS; ++u)
+    if (digit[u] != NONE) rank[u] = atomicAdd(sm.hist + digit[u], 1u);
+  __syncthreads();
+  if (tid < 32) {  // exclusive scan of the digit counts by warp 0
+    const int per = (n_digits + 31) / 32;
+    unsigned sum = 0;
+    for (int k = 0; k < per; ++k) {
+      int d = tid * per + k;
+      if (d < n_digits) sum += sm.hist[d];
+    }
+    unsigned inc = sum;
+    for (int s = 1; s < 32; s <<= 1) {
+      unsigned o = __shfl_up_sync(0xFFFFFFFFu, inc, s);
+      if (tid >= s) inc += o;
+    }
+    unsigned run = inc - sum;
+    for (int k = 0; k < per; ++k) {
+      int d = tid * per + k;
+      if (d < n_digits) {
+        sm.start[d] = run;
+        run += sm.hist[d];
+      }
+    }
+    if (tid == 31) sm.total = inc;
+  }
+  for (int d = tid; d < n_digits; d += PART_THREADS)
+    if (sm.hist[d]) sm.base[d] = (unsigned)atomicAdd(cursor + d, (int)sm.hist[d]);
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < PART_ITEMS; ++u) {
+    if (digit[u] == NONE) continue;
+    unsigned p = sm.start[digit[u]] + rank[u];
+    sm.val[p] = value[u];
+    sm.dig[p] = (unsigned char)digit[u];
+  }
+  __syncthreads();
+  for (unsigned p = tid; p < sm.total; p += PART_THREADS) {
+    unsigned d = sm.dig[p];
+    dst[sm.base[d] + (p - sm.start[d])] = sm.val[p];
+  }
+  __syncthreads();
+}
+
+// One tile's keys. (Loading them a tile ahead, as the second pass does
+// its values, needs about 70 registers a thread and made this pass
+// slower on the H100.)
+struct KeyTile {
+  longlong2 c[PART_ITEMS / 2];
+  uchar2 v[PART_ITEMS / 2];
+};
+
+__device__ __forceinline__ void load_key_tile(const long long* __restrict__ canon,
+                                              const uint8_t* __restrict__ valid, int64_t n,
+                                              int64_t t0, KeyTile& k) {
+#pragma unroll
+  for (int u = 0; u < PART_ITEMS / 2; ++u) {
+    const int64_t i = t0 + 2 * ((int64_t)u * PART_THREADS + threadIdx.x);
+    if (i + 1 < n) {
+      k.c[u] = __ldcs(reinterpret_cast<const longlong2*>(canon + i));
+      k.v[u] = __ldcs(reinterpret_cast<const uchar2*>(valid + i));
+    } else {
+      k.c[u].x = i < n ? canon[i] : 0;
+      k.c[u].y = 0;
+      k.v[u].x = i < n ? valid[i] : 0;
+      k.v[u].y = 0;
+    }
+  }
+}
+
+// The first pass: keys -> (digit = bit >> shift, value = bit mod 2^shift).
+__global__ void partition_keys_kernel(const long long* __restrict__ canon,
+                                      const uint8_t* __restrict__ valid, int64_t n,
+                                      unsigned long long bit_mask, int shift, int n_digits,
+                                      int* __restrict__ cursor, unsigned* __restrict__ dst) {
+  __shared__ PartSmem sm;
+  const unsigned long long vmask = (1ull << shift) - 1ull;
+  const int64_t step = (int64_t)gridDim.x * PART_TILE;
+  for (int64_t t0 = (int64_t)blockIdx.x * PART_TILE; t0 < n; t0 += step) {
+    KeyTile cur;
+    load_key_tile(canon, valid, n, t0, cur);
+    unsigned digit[PART_ITEMS], value[PART_ITEMS];
+#pragma unroll
+    for (int u = 0; u < PART_ITEMS / 2; ++u) {
+      const unsigned long long b0 = (unsigned long long)cur.c[u].x & bit_mask;
+      const unsigned long long b1 = (unsigned long long)cur.c[u].y & bit_mask;
+      digit[2 * u] = cur.v[u].x ? (unsigned)(b0 >> shift) : NONE;
+      digit[2 * u + 1] = cur.v[u].y ? (unsigned)(b1 >> shift) : NONE;
+      value[2 * u] = (unsigned)(b0 & vmask);
+      value[2 * u + 1] = (unsigned)(b1 & vmask);
+    }
+    partition_tile(sm, digit, value, n_digits, cursor, dst);
+  }
+}
+
+// The second pass: within range r (src[ranges[r * stride] ..
+// ranges[(r + 1) * stride])), worked by k_per_range blocks, each value
+// goes to digit v >> shift (cursor r * n_digits + digit) as v mod
+// 2^shift. Values are loaded a tile ahead.
+__global__ void partition_bins_kernel(const unsigned* __restrict__ src,
+                                      const int* __restrict__ ranges, int stride,
+                                      int k_per_range, int shift, int n_digits,
+                                      int* __restrict__ cursor, unsigned* __restrict__ dst) {
+  __shared__ PartSmem sm;
+  const int r = blockIdx.x / k_per_range, k = blockIdx.x % k_per_range;
+  const int64_t r0 = ranges[(int64_t)r * stride], r1 = ranges[(int64_t)(r + 1) * stride];
+  const int64_t share =
+      ((r1 - r0 + k_per_range - 1) / k_per_range + PART_TILE - 1) / PART_TILE * PART_TILE;
+  const int64_t lo = r0 + k * share;
+  const int64_t hi = lo + share < r1 ? lo + share : r1;
+  const unsigned vmask = (unsigned)((1ull << shift) - 1ull);
+  unsigned next[PART_ITEMS];
+#pragma unroll
+  for (int u = 0; u < PART_ITEMS; ++u) {
+    const int64_t i = lo + u * PART_THREADS + threadIdx.x;
+    next[u] = i < hi ? __ldcs(src + i) : NONE;
+  }
+  for (int64_t t0 = lo; t0 < hi; t0 += PART_TILE) {  // uniform over the block
+    unsigned digit[PART_ITEMS], value[PART_ITEMS];
+#pragma unroll
+    for (int u = 0; u < PART_ITEMS; ++u) {
+      digit[u] = next[u] == NONE ? NONE : next[u] >> shift;
+      value[u] = next[u] & vmask;
+      const int64_t i = t0 + PART_TILE + u * PART_THREADS + threadIdx.x;
+      next[u] = i < hi ? __ldcs(src + i) : NONE;
+    }
+    partition_tile(sm, digit, value, n_digits, cursor + (int64_t)r * n_digits, dst);
+  }
+}
+
+// words[b >> 5] |= 1 << (b & 31) for the block's share of binned[start ..
+// end), APPLY_BATCH loads in flight per thread.
+__device__ __forceinline__ void or_keys(unsigned* words, const unsigned* __restrict__ binned,
+                                        int start, int end) {
+  for (int j0 = start + threadIdx.x; j0 < end; j0 += blockDim.x * APPLY_BATCH) {
+    unsigned b[APPLY_BATCH];
+#pragma unroll
+    for (int u = 0; u < APPLY_BATCH; ++u) {
+      const int j = j0 + u * blockDim.x;
+      b[u] = j < end ? binned[j] : NONE;
+    }
+#pragma unroll
+    for (int u = 0; u < APPLY_BATCH; ++u)
+      if (b[u] != NONE) atomicOr(words + (b[u] >> 5), 1u << (b[u] & 31u));
+  }
+}
+
+__global__ void apply_kernel(unsigned* __restrict__ words, const unsigned* __restrict__ binned,
+                             const int* __restrict__ offsets, int cell_log2) {
+  extern __shared__ uint4 cell4[];
+  const int64_t c = blockIdx.x;
+  const int start = offsets[c], end = offsets[c + 1];
+  if (start == end) return;
+  const int cell_words = 1 << cell_log2;
+  unsigned* g_cell = words + (c << cell_log2);
+  if ((int64_t)(end - start) * DIRECT_WORDS_PER_KEY < cell_words) {
+    or_keys(g_cell, binned, start, end);
+    return;
+  }
+  unsigned* cell = reinterpret_cast<unsigned*>(cell4);
+  uint4* g_cell4 = reinterpret_cast<uint4*>(g_cell);
+  const int n4 = cell_words / 4;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += blockDim.x * APPLY_BATCH) {
+    uint4 v[APPLY_BATCH];
+#pragma unroll
+    for (int u = 0; u < APPLY_BATCH; ++u) {
+      int i = i0 + u * blockDim.x;
+      if (i < n4) v[u] = g_cell4[i];
+    }
+#pragma unroll
+    for (int u = 0; u < APPLY_BATCH; ++u) {
+      int i = i0 + u * blockDim.x;
+      if (i < n4) cell4[i] = v[u];
+    }
+  }
+  for (int i = 4 * n4 + threadIdx.x; i < cell_words; i += blockDim.x) cell[i] = g_cell[i];
+  __syncthreads();
+  or_keys(cell, binned, start, end);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) g_cell4[i] = cell4[i];
+  for (int i = 4 * n4 + threadIdx.x; i < cell_words; i += blockDim.x) g_cell[i] = cell[i];
+}
+
+// the current device's SMs (1 if the query fails: a smaller grid, the
+// same result)
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    return 1;
+  return sms;
+}
+
+// cells_log2 = bits_log2 - 5 - cell_log2 cells of 2^cell_log2 words
+bool bad_cells(int bits_log2, int cell_log2) {
+  return bits_log2 < 5 || bits_log2 > 36 || cell_log2 < 0 || cell_log2 > MAX_CELL_LOG2 ||
+         cell_log2 > bits_log2 - 5 || bits_log2 - 5 - cell_log2 > MAX_CELLS_LOG2;
 }
 
 }  // namespace
 
+// The direct route: one global atomicOr per valid key.
 extern "C" int ntsynt_bf_insert(void* words, const void* canon, const void* valid, int64_t n,
                                 int bits_log2, void* stream) {
   if (n <= 0) return 0;
@@ -55,5 +362,76 @@ extern "C" int ntsynt_bf_insert(void* words, const void* canon, const void* vali
   if (blocks > 1048576) blocks = 1048576;  // grid-stride loop covers the rest
   bf_insert_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (unsigned int*)words, (const long long*)canon, (const uint8_t*)valid, n, bits_log2);
+  return (int)cudaGetLastError();
+}
+
+// Step (1): counts [2^cells_log2] int, zeroed by the caller, get each
+// cell's valid keys. canon must be 16-byte and valid 2-byte aligned.
+extern "C" int ntsynt_bf_cell_count(const void* canon, const void* valid, int64_t n,
+                                    int bits_log2, int cell_log2, void* counts, void* stream) {
+  if (bad_cells(bits_log2, cell_log2) || n <= 0 || n >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const int n_cells = 1 << (bits_log2 - 5 - cell_log2);
+  const size_t smem = (size_t)(n_cells + 1) / 2 * 4;
+  cudaError_t e = cudaFuncSetAttribute(cell_count_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int64_t blocks = (n + COUNT_SUB - 1) / COUNT_SUB;
+  const int64_t cap = 2ll * sm_count();
+  if (blocks > cap) blocks = cap;
+  cell_count_kernel<<<(unsigned)blocks, COUNT_THREADS, smem, (cudaStream_t)stream>>>(
+      (const long long*)canon, (const uint8_t*)valid, n, (1ull << bits_log2) - 1ull,
+      cell_log2 + 5, n_cells, (int*)counts);
+  return (int)cudaGetLastError();
+}
+
+// Step (2), first pass: each valid key's bit b goes to digit b >> shift
+// (2^digits_log2 digits), at cursor[digit]++ in dst, as b mod 2^shift.
+extern "C" int ntsynt_bf_partition_keys(const void* canon, const void* valid, int64_t n,
+                                        int bits_log2, int digits_log2, int shift, void* cursor,
+                                        void* dst, void* stream) {
+  if (n <= 0 || n >= (1ll << 31) || bits_log2 < 5 || bits_log2 > 36 || digits_log2 < 0 ||
+      digits_log2 > MAX_DIGITS_LOG2 || shift < 0 || shift > 32 || shift + digits_log2 != bits_log2)
+    return (int)cudaErrorInvalidValue;
+  int64_t blocks = (n + PART_TILE - 1) / PART_TILE;
+  const int64_t cap = 4ll * sm_count();
+  if (blocks > cap) blocks = cap;
+  partition_keys_kernel<<<(unsigned)blocks, PART_THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)canon, (const uint8_t*)valid, n, (1ull << bits_log2) - 1ull, shift,
+      1 << digits_log2, (int*)cursor, (unsigned*)dst);
+  return (int)cudaGetLastError();
+}
+
+// Step (2), second pass: range r of src is src[ranges[r * stride] ..
+// ranges[(r + 1) * stride]); its value v goes to digit v >> shift, at
+// cursor[r * 2^digits_log2 + digit]++ in dst, as v mod 2^shift.
+extern "C" int ntsynt_bf_partition_bins(const void* src, const void* ranges, int n_ranges,
+                                        int stride, int digits_log2, int shift, void* cursor,
+                                        void* dst, void* stream) {
+  if (n_ranges <= 0 || stride <= 0 || digits_log2 < 0 || digits_log2 > MAX_DIGITS_LOG2 ||
+      shift < 0 || shift + digits_log2 > 32)
+    return (int)cudaErrorInvalidValue;
+  const int target = 4 * sm_count();
+  const int k = (target + n_ranges - 1) / n_ranges;
+  partition_bins_kernel<<<(unsigned)n_ranges * k, PART_THREADS, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)src, (const int*)ranges, stride, k, shift, 1 << digits_log2, (int*)cursor,
+      (unsigned*)dst);
+  return (int)cudaGetLastError();
+}
+
+// Step (3): cell c's bits within the cell are binned[offsets[c] ..
+// offsets[c + 1]). words must be 16-byte aligned.
+extern "C" int ntsynt_bf_apply(void* words, const void* binned, const void* offsets,
+                               int bits_log2, int cell_log2, void* stream) {
+  if (bad_cells(bits_log2, cell_log2)) return (int)cudaErrorInvalidValue;
+  const int n_cells = 1 << (bits_log2 - 5 - cell_log2);
+  const size_t smem = (size_t)4 << cell_log2;
+  cudaError_t e = cudaFuncSetAttribute(apply_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // 1024 threads for a 128 KiB cell (one block per SM), 512 below (more)
+  const int threads = cell_log2 >= 15 ? 1024 : 512;
+  apply_kernel<<<n_cells, threads, smem, (cudaStream_t)stream>>>(
+      (unsigned*)words, (const unsigned*)binned, (const int*)offsets, cell_log2);
   return (int)cudaGetLastError();
 }

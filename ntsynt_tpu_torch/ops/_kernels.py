@@ -15,6 +15,7 @@ PyTorch versions used for CPU tensors do not count.
 """
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -49,14 +50,25 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     # codes, n_kmers, k, tables, mult, key, canon, valid, stream
     "ntsynt_nthash": [_P, _I64, ctypes.c_int, _P, ctypes.c_uint64, _P, _P, _P, _P],
-    # keys, n, w, arg, minv, stream
-    "ntsynt_winmin": [_P, _I64, _I64, _P, _P, _P],
+    # keys, n, w, tile, g, tw, cs, arg, minv, stream
+    "ntsynt_winmin": [_P, _I64, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      _P, _P, _P],
     # arg, minv, legit, nw, block_counts, total, stream
     "ntsynt_compact_count": [_P, _P, _P, _I64, _P, _P, _P],
     # arg, minv, legit, nw, block_offsets, out_pos, out_hash, stream
     "ntsynt_compact_scatter": [_P, _P, _P, _I64, _P, _P, _P, _P],
     # words, canon, valid, n, bits_log2, stream
     "ntsynt_bf_insert": [_P, _P, _P, _I64, ctypes.c_int, _P],
+    # canon, valid, n, bits_log2, cell_log2, counts, stream
+    "ntsynt_bf_cell_count": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P],
+    # canon, valid, n, bits_log2, digits_log2, shift, cursor, dst, stream
+    "ntsynt_bf_partition_keys": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                                 _P],
+    # src, ranges, n_ranges, stride, digits_log2, shift, cursor, dst, stream
+    "ntsynt_bf_partition_bins": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 _P, _P, _P],
+    # words, binned, offsets, bits_log2, cell_log2, stream
+    "ntsynt_bf_apply": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
     # canon, valid, n, bits_log2, cell_log2, counts, stream
     "ntsynt_bf_sweep_count": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P],
     # canon, valid, n, bits_log2, cell_log2, cursor, binned, stream
@@ -79,12 +91,15 @@ def count(name: str, *shape) -> None:
 
 
 def sources() -> list:
+    """The translation units nvcc compiles."""
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def source_digest() -> str:
+    """SHA-256 of the flags, the sources and the headers they include
+    (csrc/*.cuh), so an edited header rebuilds too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fin:
             h.update(fin.read())
@@ -141,6 +156,15 @@ def lib():
                 fn.restype = ctypes.c_int
             _LIB = handle
         return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device index (cached: the query
+    costs more host time than a small kernel's launch)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -8,9 +8,11 @@ word i >> 5. The reference sizes m as ceil(-G / ln(1 - fpr))
 (src/ntsynt_make_common_bf.cpp:28-40); ``pow2_bits`` rounds that to the
 nearest power of two in [2^16, 2^34], or up to 2^36 for an explicit size.
 
-``insert_words`` launches the CUDA kernel (csrc/bf_insert.cu, one
-``atomicOr`` per valid key) for CUDA tensors and runs
-``insert_words_plain`` for CPU tensors. Probing is a plain gather.
+``insert_words`` launches the CUDA kernel (csrc/bf_insert.cu: the keys
+binned by filter region, then each region ORed in shared memory; a
+sparse segment takes one global ``atomicOr`` per key) for CUDA tensors
+and runs ``insert_words_plain`` for CPU tensors. Probing is a plain
+gather.
 
 Filters are saved in the JAX package's containers (``ntsynt_tpu_bf1``
 native, or btllib's KmerBloomFilter v6), so files cross-load between the
@@ -73,6 +75,119 @@ def insert_words_plain(words, canon, valid, bits_log2: int) -> torch.Tensor:
     return words
 
 
+# K4's geometry (csrc/bf_insert.cu): a cell is one block's shared
+# memory, 2^15 words (2^20 bits, 128 KiB); the keys are partitioned by
+# cell in one pass of at most 2^8 digits, or two. A segment, or a cell,
+# with fewer keys than one per DIRECT_WORDS_PER_KEY words takes global
+# atomics instead of the shared-memory sweep (the same constant as in the
+# source).
+CELL_LOG2 = 15
+MAX_DIGITS_LOG2 = 8
+DIRECT_WORDS_PER_KEY = 16
+
+
+def insert_geometry(bits_log2: int):
+    """(cell_log2, digits_a, digits_b) of K4's binned route: 2^cell_log2
+    words per cell (a filter under one cell is one cell), and the cell
+    index split into the first partition pass's top digits_a bits and the
+    second's low digits_b bits (digits_b == 0: one pass)."""
+    words_log2 = bits_log2 - 5
+    cell_log2 = min(CELL_LOG2, words_log2)
+    cells_log2 = words_log2 - cell_log2
+    digits_b = 0 if cells_log2 <= MAX_DIGITS_LOG2 else cells_log2 // 2
+    return cell_log2, cells_log2 - digits_b, digits_b
+
+
+def insert_route(n: int, bits_log2: int) -> str:
+    """"binned" (count, partition, shared-memory apply) or "direct" (one
+    global atomicOr per key) for a segment of n keys, invalid ones
+    included: direct below one key per DIRECT_WORDS_PER_KEY filter words,
+    where sweeping the filter costs more than the atomics, and for
+    segments of 2^31 keys or more (32-bit offsets)."""
+    n_words = 1 << (bits_log2 - 5)
+    if n * DIRECT_WORDS_PER_KEY < n_words or n >= 1 << 31:
+        return "direct"
+    return "binned"
+
+
+def _check_insert(words, canon, valid, bits_log2: int) -> None:
+    if not 5 <= bits_log2 <= 36:
+        raise ValueError("insert_words: bits_log2 must be in 5..36")
+    if words.dtype != torch.int32 or words.shape != ((1 << bits_log2) // 32,):
+        raise ValueError("insert_words: words must be int32 [2^bits_log2 / 32]")
+    if canon.dtype != torch.int64 or valid.dtype != torch.bool or canon.shape != valid.shape:
+        raise ValueError("insert_words: canon int64 [n] and valid bool [n] expected")
+
+
+def insert_direct(words, canon, valid, bits_log2: int) -> None:
+    """K4's direct route on CUDA tensors: one global atomicOr per valid
+    key. Not counted as a launch."""
+    _kernels.require_cuda("insert_direct", words, canon, valid)
+    rc = _kernels.lib().ntsynt_bf_insert(
+        words.data_ptr(), canon.data_ptr(), valid.data_ptr(), canon.shape[0], bits_log2,
+        _kernels.stream_ptr(words.device),
+    )
+    _kernels.check("bf_insert", rc)
+
+
+def bin_keys(canon, valid, bits_log2: int):
+    """Steps 1-2 of K4's binned route on CUDA tensors (canon 16-byte and
+    valid 2-byte aligned, 0 < n < 2^31): (binned int32 [n], offsets int32
+    [n_cells + 1]); cell c's keys' bits within the cell are
+    binned[offsets[c] .. offsets[c + 1]). Not counted as a launch."""
+    dev = canon.device
+    n = canon.shape[0]
+    cell_log2, digits_a, digits_b = insert_geometry(bits_log2)
+    n_cells = 1 << (digits_a + digits_b)
+    lib = _kernels.lib()
+    stream = _kernels.stream_ptr(dev)
+    counts = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev)
+    rc = lib.ntsynt_bf_cell_count(canon.data_ptr(), valid.data_ptr(), n, bits_log2, cell_log2,
+                                  counts.data_ptr(), stream)
+    _kernels.check("bf_cell_count", rc)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int32)
+    offsets -= counts
+    # the first pass: by the cell's top digits_a bits, at its range's start
+    cursor = offsets[:-1:1 << digits_b].clone()
+    first = torch.empty(n, dtype=torch.int32, device=dev)
+    rc = lib.ntsynt_bf_partition_keys(canon.data_ptr(), valid.data_ptr(), n, bits_log2,
+                                      digits_a, bits_log2 - digits_a, cursor.data_ptr(),
+                                      first.data_ptr(), stream)
+    _kernels.check("bf_partition_keys", rc)
+    if digits_b == 0:
+        return first, offsets
+    # the second: within each range, by the low digits_b bits
+    cursor = offsets[:-1].clone()
+    binned = torch.empty(n, dtype=torch.int32, device=dev)
+    rc = lib.ntsynt_bf_partition_bins(first.data_ptr(), offsets.data_ptr(), 1 << digits_a,
+                                      1 << digits_b, digits_b, cell_log2 + 5, cursor.data_ptr(),
+                                      binned.data_ptr(), stream)
+    _kernels.check("bf_partition_bins", rc)
+    return binned, offsets
+
+
+def apply_bins(words, binned, offsets, bits_log2: int) -> None:
+    """Step 3 of K4's binned route on CUDA tensors: one block per cell ORs
+    its keys into words (16-byte aligned). Not counted as a launch."""
+    rc = _kernels.lib().ntsynt_bf_apply(
+        words.data_ptr(), binned.data_ptr(), offsets.data_ptr(), bits_log2,
+        insert_geometry(bits_log2)[0], _kernels.stream_ptr(words.device),
+    )
+    _kernels.check("bf_apply", rc)
+
+
+def insert_binned(words, canon, valid, bits_log2: int) -> None:
+    """K4's binned route on CUDA tensors (words 16-byte aligned, 0 < n <
+    2^31), whatever the segment's density. Not counted as a launch."""
+    _kernels.require_cuda("insert_binned", words, canon, valid)
+    if words.data_ptr() % 16:
+        raise ValueError("insert_binned: words must be 16-byte aligned")
+    if canon.data_ptr() % 16 or valid.data_ptr() % 2:
+        canon, valid = canon.clone(), valid.clone()  # fresh blocks are aligned
+    binned, offsets = bin_keys(canon, valid, bits_log2)
+    apply_bins(words, binned, offsets, bits_log2)
+
+
 def insert_words(words, canon, valid, bits_log2: int) -> torch.Tensor:
     """OR the bit of every valid canonical hash into words, in place.
 
@@ -82,21 +197,18 @@ def insert_words(words, canon, valid, bits_log2: int) -> torch.Tensor:
       valid: bool [n]; only valid keys are inserted.
     Returns words.
     """
-    if words.dtype != torch.int32 or words.shape != ((1 << bits_log2) // 32,):
-        raise ValueError("insert_words: words must be int32 [2^bits_log2 / 32]")
-    if canon.dtype != torch.int64 or valid.dtype != torch.bool or canon.shape != valid.shape:
-        raise ValueError("insert_words: canon int64 [n] and valid bool [n] expected")
+    _check_insert(words, canon, valid, bits_log2)
     if words.device.type == "cpu":
         return insert_words_plain(words, canon, valid, bits_log2)
     _kernels.require_cuda("insert_words", words, canon, valid)
-    if canon.shape[0] == 0:
+    n = canon.shape[0]
+    if n == 0:
         return words
-    rc = _kernels.lib().ntsynt_bf_insert(
-        words.data_ptr(), canon.data_ptr(), valid.data_ptr(), canon.shape[0], bits_log2,
-        _kernels.stream_ptr(words.device),
-    )
-    _kernels.check("bf_insert", rc)
-    _kernels.count("bf_insert", canon.shape[0], bits_log2)
+    if insert_route(n, bits_log2) == "direct":
+        insert_direct(words, canon, valid, bits_log2)
+    else:
+        insert_binned(words, canon, valid, bits_log2)
+    _kernels.count("bf_insert", n, bits_log2)
     return words
 
 

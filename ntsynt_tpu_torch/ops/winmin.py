@@ -7,13 +7,22 @@ leftmost position of its minimum, i.e. the minimum under the unsigned
 (key, position) order, which is what a <-comparison monotone queue
 (indexlr) selects.
 
-``window_argmin`` launches the CUDA kernel (csrc/winmin.cu) for a CUDA
-tensor and runs ``window_argmin_plain`` for a CPU tensor.
+``window_argmin`` launches the CUDA kernel (csrc/winmin.cu, keys staged
+in shared memory) for a CUDA tensor and runs ``window_argmin_plain`` for
+a CPU tensor.
 """
 
 import torch
 
 from . import _kernels
+
+# K2's shared-memory tile (csrc/winmin.cu): (G + 1) * w + 2 keys staged
+# per block, so w up to 4095 is staged whole; larger w is streamed in
+# pieces of 32 * STREAM_LANES lanes per warp. A launch aims at
+# BLOCKS_PER_SM blocks per SM before it packs more w-blocks into one.
+TILE_KEYS = 8192
+STREAM_LANES = 15
+BLOCKS_PER_SM = 2
 
 _SIGN = -(1 << 63)  # xor with this maps uint64 order onto int64 order
 _PMAX = (1 << 63) - 1
@@ -67,6 +76,26 @@ def window_argmin_plain(keys: torch.Tensor, w: int):
     return arg, mkey ^ _SIGN
 
 
+def winmin_plan(n: int, w: int, sm_count: int):
+    """(tile, G, tw, cs) of K2 for n keys at window w on a card of
+    sm_count SMs. Staged (G >= 1): a block stages G w-blocks and the
+    next one in a tile of TILE_KEYS keys, G as large as the tile holds
+    but no larger than fills BLOCKS_PER_SM blocks per SM (so a few
+    thousand keys still spread over many blocks); a group of tw threads
+    (a power of two <= 32, about w/4) scans one w-block, cs lanes each,
+    cs odd so that a warp's strided shared loads hit distinct banks.
+    Streamed (G == 0, w > 4095): one warp per w-block, cs = STREAM_LANES."""
+    g = (TILE_KEYS - 2) // w - 1
+    if g < 1:
+        return TILE_KEYS, 0, 32, STREAM_LANES
+    nb = -(-(n - w + 1) // w)
+    g = max(1, min(g, -(-nb // (BLOCKS_PER_SM * sm_count))))
+    tw = 1
+    while tw < 32 and tw * 4 < w:
+        tw <<= 1
+    return TILE_KEYS, g, tw, -(-w // tw) | 1
+
+
 def window_argmin(keys: torch.Tensor, w: int):
     """Leftmost argmin and min key of every length-w window of keys.
 
@@ -83,11 +112,14 @@ def window_argmin(keys: torch.Tensor, w: int):
     if keys.device.type == "cpu":
         return window_argmin_plain(keys, w)
     _kernels.require_cuda("window_argmin", keys)
+    if keys.data_ptr() % 16:
+        keys = keys.clone()  # the kernel stages keys with 16-byte loads
     nw = n - w + 1
     arg = torch.empty(nw, dtype=torch.int64, device=keys.device)
     minv = torch.empty(nw, dtype=torch.int64, device=keys.device)
+    plan = winmin_plan(n, w, _kernels.sm_count(keys.device.index))
     rc = _kernels.lib().ntsynt_winmin(
-        keys.data_ptr(), n, w, arg.data_ptr(), minv.data_ptr(),
+        keys.data_ptr(), n, w, *plan, arg.data_ptr(), minv.data_ptr(),
         _kernels.stream_ptr(keys.device),
     )
     _kernels.check("winmin", rc)
