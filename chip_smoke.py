@@ -9,11 +9,13 @@ Phases, each printing one JSON line with its elapsed seconds:
      ntsynt_tpu_torch/_build/ by source hash);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      same inputs (made from a seed), at the shapes the main path gives
-     it and at the edges of K2's and K4's designs; outputs must be
-     bit-identical (max_abs_err 0). K2 and K4 report their device time
-     (ms: launches captured in a CUDA graph, its replay timed) apart from
-     their wrapper's (wrapper_ms: a timed loop of calls), K4 also the
-     repeat walk's shape, a 2^34-bit filter and its bin/apply split;
+     it and at the edges of K1's, K2's, K3's and K4's designs; outputs
+     must be bit-identical (max_abs_err 0). Every kernel reports its
+     device time (ms: launches captured in a CUDA graph, its replay
+     timed; K3's launches without the wrapper's host sync) apart from
+     its wrapper's (wrapper_ms: a timed loop of calls); K1 and K4 also
+     the repeat walk's shape, K4 a 2^34-bit filter and its bin/apply
+     split, K5 its cascade and bin/apply split;
   4. main path: two 100 Mbp genomes (0.1% SNPs, one 50 kb inversion) are
      generated into a temporary directory and run through the port's CLI
      (``python -m ntsynt_tpu_torch a.fa b.fa -d 1``) on the card; the
@@ -21,8 +23,9 @@ Phases, each printing one JSON line with its elapsed seconds:
      of the path must have launched; prints each launch's sizes and the
      run's peak device memory;
   5. winmin_refine: the window-argmin kernel against its plain version at
-     the key counts the main path's refinement rounds gave it, with its
-     device time and its wrapper's time;
+     the key counts the main path's refinement rounds gave it, and the
+     compaction kernel on its output there, each with its device time and
+     its wrapper's time;
   6. sweep path: the 2 x 100 Mbp cascade built through the binned sweep
      (NTSYNT_BF_SWEEP=1) must equal the atomic-OR cascade word for word,
      and the CLI run with the sweep on must write the main path's blocks,
@@ -335,6 +338,95 @@ def k4_edges(torch, bloom, canon, valid) -> int:
     return len(cases)
 
 
+# the edges of K1's and K3's designs, as in tests/test_torch_redesign2.py
+K1_EDGE_KS = (1, 2, 19, 24, 31, 32, 33, 64, 129)
+
+
+def k1_codes(rng, n: int, k: int):
+    """Random codes with N runs (one longer than k), single Ns and codes
+    5-255, which count as N."""
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    codes[rng.random(n) < 0.01] = 4
+    junk = rng.random(n) < 0.005
+    codes[junk] = rng.integers(5, 256, int(junk.sum()))
+    codes[n // 3 : n // 3 + k + 7] = 4
+    return codes
+
+
+def k1_edges(torch, nthash, rng) -> int:
+    """K1 vs its plain version at every edge k: n = 1, n not a multiple
+    of a run or a tile, an N on a tile's first and last code and inside
+    its halo, every code N, a codes view at an odd offset, and k past the
+    staged halo (codes read from device memory)."""
+    from ntsynt_tpu_torch.ops import _kernels
+
+    sms = _kernels.sm_count(0)
+    cases = 0
+
+    def check(codes, k, n, label):
+        nonlocal cases
+        require_equal(f"K1 {label} k={k} n={n}",
+                      zip(nthash.hash_kmers(codes, k, n), nthash.hash_kmers_plain(codes, k, n)))
+        cases += 1
+
+    for k in K1_EDGE_KS:
+        for n in (1, 1000, (1 << 20) + 3, (1 << 22) + 5):
+            tile = nthash.THREADS * nthash.nthash_plan(n, k, sms)[0]
+            codes = k1_codes(rng, n + k - 1, k)
+            for p in (0, tile - 1, tile, tile + k // 2, 2 * tile + k - 1, n + k - 2):
+                if p < len(codes):
+                    codes[p] = 4
+            check(torch.from_numpy(codes).cuda(), k, n, "random")
+        check(torch.full((5000 + k,), 4, dtype=torch.uint8, device="cuda"), k, 5001, "all N")
+        view = torch.from_numpy(k1_codes(rng, 70_002 + k, k)).cuda()[3:]
+        check(view, k, 70_000, "odd offset")
+    for k in (nthash.MAX_STAGED_K, nthash.MAX_STAGED_K + 1, 10_000):
+        check(torch.from_numpy(k1_codes(rng, 40_000 + k - 1, k)).cuda(), k, 40_000, "long k")
+    return cases
+
+
+def k3_cases(rng, tile: int):
+    """(label, arg, minv, legit) at the edges of K3's design."""
+    cases = []
+    for nw in (1, 2, tile - 1, tile, tile + 1, 3 * tile + 17):
+        arg = np.maximum.accumulate(rng.integers(0, nw + 50, nw)).astype(np.int64)
+        minv = rng.integers(-(1 << 62), 1 << 62, nw)
+        minv[rng.random(nw) < 0.1] = -1
+        cases.append((f"random nw={nw}", arg, minv, rng.random(nw) < 0.95))
+    nw = 3 * tile + 5
+    arg = np.arange(nw, dtype=np.int64)
+    minv = rng.integers(0, 1 << 62, nw)
+    cases.append(("every window flagged", arg, minv, np.ones(nw, bool)))
+    cases.append(("no valid window", arg, np.full(nw, -1, np.int64), np.ones(nw, bool)))
+    cases.append(("no legit window", arg, minv, np.zeros(nw, bool)))
+    runs = np.repeat(np.arange(nw // 64 + 1, dtype=np.int64) * 64, 64)[:nw]
+    runs[tile:] += 1  # a run change exactly at the second tile's first window
+    runs[2 * tile - 3 :] += 1
+    cases.append(("run change at a tile's first window", runs, minv, np.ones(nw, bool)))
+    legit = np.ones(nw, bool)
+    legit[tile - 40 : tile + 40] = False  # a contig gap across a tile boundary
+    legit[2 * tile - 1] = False  # the last window before a tile is not live
+    cases.append(("legit gaps across tiles", runs, minv, legit))
+    nw = 1 << 24  # more tiles than the card holds blocks at once
+    arg = np.maximum.accumulate(rng.integers(0, nw, nw)).astype(np.int64)
+    cases.append(("2^24 windows", arg, rng.integers(-(1 << 62), 1 << 62, nw),
+                  rng.random(nw) < 0.99))
+    return cases
+
+
+def k3_edges(torch, sketch_device, rng) -> int:
+    """K3 vs its plain version on every case of k3_cases, into new
+    buffers and in place (as sketch_stream compacts)."""
+    cases = k3_cases(rng, sketch_device.COMPACT_TILE)
+    for label, arg, minv, legit in cases:
+        a, m, lg = (torch.from_numpy(x).cuda() for x in (arg, minv, legit))
+        ref = sketch_device.compact_plain(a, m, lg)
+        require_equal(f"K3 {label}", zip(sketch_device.compact_minimizers(a, m, lg), ref))
+        require_equal(f"K3 {label}, in place",
+                      zip(sketch_device.compact_minimizers(a, m, lg, out=(a, m)), ref))
+    return 2 * len(cases)
+
+
 def phase_kernels(torch, dev, kernels: dict) -> None:
     """Each kernel vs its plain version at main-path shapes."""
     from ntsynt_tpu_torch.ops import (_kernels, bf_build, bf_sweep, bloom, nthash,
@@ -347,18 +439,37 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     codes_np[rng.random(n + k - 1) < 0.001] = 4  # N runs of one base
     codes = torch.from_numpy(codes_np).to(dev)
 
-    # K1
+    # K1: device time (a CUDA graph of launches) apart from the wrapper's
     key, canon, valid = nthash.hash_kmers(codes, k, n)
     pk, pc, pv = nthash.hash_kmers_plain(codes, k, n)
     err = require_equal("K1", [(key, pk), (canon, pc), (valid, pv)])
+    del pk, pc, pv
+    # the repeat walk's shape: 2^20 k-mers, a new segment in each call
+    m = 1 << 20
+    segs = [codes[i * m:(i + 1) * m + k - 1] for i in range(10)]
+    err_walk = require_equal("K1 2^20", zip(nthash.hash_kmers(segs[0], k, m),
+                                            nthash.hash_kmers_plain(segs[0], k, m)))
+    repeat_walk = dict(
+        max_abs_err=err_walk,
+        ms=device_ms([lambda c=c: nthash.hash_kmers(c, k, m) for c in segs], 20),
+        wrapper_ms=cuda_time_ms(lambda: nthash.hash_kmers(segs[0], k, m), 20),
+        plain_ms=cuda_time_ms(lambda: nthash.hash_kmers_plain(segs[0], k, m), 2),
+        bound_ms=(m + k - 1 + 17 * m) / HBM_BYTES_PER_S * 1e3,
+        shape=f"{m} k-mers, k={k}",
+        run=nthash.nthash_plan(m, k, _kernels.sm_count(dev.index))[0],
+    )
     kernels["nthash"].update(
-        max_abs_err=err,
-        ms=cuda_time_ms(lambda: nthash.hash_kmers(codes, k, n), 10),
+        max_abs_err=max(err, err_walk),
+        ms=device_ms(lambda: nthash.hash_kmers(codes, k, n)),
+        wrapper_ms=cuda_time_ms(lambda: nthash.hash_kmers(codes, k, n), 10),
         plain_ms=cuda_time_ms(lambda: nthash.hash_kmers_plain(codes, k, n), 2),
         bound_ms=(n + k - 1 + 17 * n) / HBM_BYTES_PER_S * 1e3,
         shape=f"{n} k-mers, k={k}",
+        run=nthash.nthash_plan(n, k, _kernels.sm_count(dev.index))[0],
+        repeat_walk=repeat_walk,
+        edge_cases=k1_edges(torch, nthash, rng),
     )
-    del pk, pc, pv
+    del segs
 
     # K2 at the main path's w (and a streamed w past the staging limit);
     # the refinement rounds' shapes are timed after the main path has
@@ -375,18 +486,16 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     for s in rng.integers(0, nw - 2000, 64):
         legit_np[s : s + 1000 + k] = False
     legit = torch.from_numpy(legit_np).to(dev)
-    pos, hsh = sketch_device.compact_minimizers(arg_main, minv_main, legit)
-    ppos, phsh = sketch_device.compact_plain(arg_main, minv_main, legit)
-    err = require_equal("K3", [(pos, ppos), (hsh, phsh)])
+    pos = sketch_device.compact_minimizers(arg_main, minv_main, legit)[0]
     if pos.shape[0] == 0 or bool((pos[1:] <= pos[:-1]).any()):
         raise AssertionError("K3: selections must be non-empty and strictly increasing")
+    del pos
     kernels["compact"].update(
-        max_abs_err=err,
-        ms=cuda_time_ms(lambda: sketch_device.compact_minimizers(arg_main, minv_main, legit), 10),
-        plain_ms=cuda_time_ms(lambda: sketch_device.compact_plain(arg_main, minv_main, legit), 2),
-        bound_ms=(17 * nw + 16 * pos.shape[0]) / HBM_BYTES_PER_S * 1e3,
-        shape=f"{nw} windows -> {pos.shape[0]} minimizers",
+        time_compact(torch, sketch_device, arg_main, minv_main, legit),
+        edge_cases=k3_edges(torch, sketch_device, rng),
     )
+    del arg_main, minv_main, legit
+    torch.cuda.empty_cache()
 
     # K4 into a 2^32-bit filter, the main path's size at 100 Mbp
     bits = FILTER_LOG2
@@ -478,7 +587,9 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     del pnew
     cascade = dict(
         max_abs_err=err_c,
-        ms=cuda_time_ms(lambda: bf_sweep.cascade_segment(prev, new, canon, valid, bits), 10),
+        ms=device_ms(lambda: bf_sweep.cascade_segment(prev, new, canon, valid, bits)),
+        wrapper_ms=cuda_time_ms(
+            lambda: bf_sweep.cascade_segment(prev, new, canon, valid, bits), 10),
         plain_ms=cuda_time_ms(
             lambda: bf_sweep.sweep_plain(new, canon, valid, bits, prev=prev), 2),
         # keys once, prev's hit words read, new's written words read and written
@@ -502,7 +613,8 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
         hits = torch.unique(bloom.bit_index(keys[v_sub], sbits)[0]).numel()
         small[label] = dict(
             max_abs_err=e,
-            ms=cuda_time_ms(lambda: bf_sweep.insert_segment(sw, keys, v_sub, sbits), 5),
+            ms=device_ms(lambda: bf_sweep.insert_segment(sw, keys, v_sub, sbits), 5),
+            wrapper_ms=cuda_time_ms(lambda: bf_sweep.insert_segment(sw, keys, v_sub, sbits), 5),
             plain_ms=cuda_time_ms(lambda: bf_sweep.sweep_plain(sw, keys, v_sub, sbits), 2),
             bound_ms=(9 * sub + 8 * hits) / HBM_BYTES_PER_S * 1e3,
             shape=f"{sub} keys into 2^{sbits} bits ({hits} distinct words hit)",
@@ -512,14 +624,15 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     # per-cell shared-memory apply, each timed alone
     binned, offsets = bf_sweep.bin_keys(canon, valid, bits)
     stage_ms = dict(
-        bin=cuda_time_ms(lambda: bf_sweep.bin_keys(canon, valid, bits), 10),
-        apply=cuda_time_ms(lambda: bf_sweep.apply_bins(swept, binned, offsets, bits), 10),
+        bin=device_ms(lambda: bf_sweep.bin_keys(canon, valid, bits)),
+        apply=device_ms(lambda: bf_sweep.apply_bins(swept, binned, offsets, bits)),
     )
     del binned, offsets
     kernels["bf_sweep"].update(
         stage_ms=stage_ms,
         max_abs_err=max(err, err_c, *(d["max_abs_err"] for d in small.values())),
-        ms=cuda_time_ms(lambda: bf_sweep.insert_segment(swept, canon, valid, bits), 10),
+        ms=device_ms(lambda: bf_sweep.insert_segment(swept, canon, valid, bits)),
+        wrapper_ms=cuda_time_ms(lambda: bf_sweep.insert_segment(swept, canon, valid, bits), 10),
         plain_ms=cuda_time_ms(lambda: bf_sweep.sweep_plain(swept, canon, valid, bits), 2),
         bound_ms=k4_bound,
         shape=f"{n} keys into 2^{bits} bits ({hit_words} distinct words hit), insert",
@@ -627,12 +740,35 @@ def phase_make_bf(torch, dev, tmp: str, fa: str, fb: str, cascade, info: dict) -
     os.remove(prefix + ".bf")
 
 
+def time_compact(torch, sketch_device, arg, minv, legit, reps: int = 10) -> dict:
+    """K3 vs its plain version on these windows: check, then its device
+    time (ms: compact_launch, which does not sync, in a CUDA graph) and
+    its wrapper's (wrapper_ms: a loop of calls, each syncing once), both
+    writing into buffers made beforehand, as the sketch's in-place call
+    allocates none."""
+    pos, hsh = sketch_device.compact_minimizers(arg, minv, legit)
+    err = require_equal(f"K3 {arg.shape[0]} windows",
+                        zip((pos, hsh), sketch_device.compact_plain(arg, minv, legit)))
+    nw, m = arg.shape[0], pos.shape[0]
+    out = (torch.empty_like(arg), torch.empty_like(minv))
+    return dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: sketch_device.compact_launch(arg, minv, legit, out), reps),
+        wrapper_ms=cuda_time_ms(
+            lambda: sketch_device.compact_minimizers(arg, minv, legit, out=out), reps),
+        plain_ms=cuda_time_ms(lambda: sketch_device.compact_plain(arg, minv, legit), 2),
+        bound_ms=(17 * nw + 16 * m) / HBM_BYTES_PER_S * 1e3,
+        shape=f"{nw} windows -> {m} minimizers",
+    )
+
+
 def phase_winmin_refine(torch, dev, shapes, kernels: dict, info: dict) -> None:
     """K2 vs its plain version at the largest key count the main path
     gave it for each refinement w, on keys hashed from seeded codes; and
     w=10 (the last round of the -d < 1 preset) at the smallest of those
-    counts."""
-    from ntsynt_tpu_torch.ops import nthash, winmin
+    counts. K3 compacts each of those K2 outputs (every window legit):
+    the window counts of the refinement rounds' K3 launches."""
+    from ntsynt_tpu_torch.ops import nthash, sketch_device, winmin
 
     main_w = max(w for _, w in shapes["winmin"])
     largest = {}
@@ -645,12 +781,18 @@ def phase_winmin_refine(torch, dev, shapes, kernels: dict, info: dict) -> None:
     rng = np.random.default_rng(SEED + 1)
     k = 24
     by_w = kernels["winmin"]["by_w"]
+    k3_refine = kernels["compact"].setdefault("refine", {})
     for w, n in sorted(largest.items(), reverse=True):
         codes = torch.from_numpy(rng.integers(0, 4, n + k - 1, dtype=np.uint8)).to(dev)
         keys = nthash.hash_kmers(codes, k, n)[0]
         by_w[str(w)] = time_winmin(winmin, keys, w)
-        del codes, keys
+        arg, minv = winmin.window_argmin(keys, w)
+        k3_refine[str(w)] = time_compact(torch, sketch_device, arg, minv,
+                                         torch.ones_like(arg, dtype=torch.bool), 20)
+        del codes, keys, arg, minv
     info["by_w"] = {w: by_w[str(w)] for w in sorted(largest, reverse=True)}
+    info["compact_by_w"] = {w: k3_refine[str(w)] for w in sorted(largest, reverse=True)}
+    info["compact_launch_windows"] = [nw for (nw,) in shapes["compact"]]
 
 
 def phase_card_vs_cpu(tmp: str, info: dict) -> None:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time K2 (window argmin) and K4 (Bloom-filter insert) of one checkout of
-ntsynt_tpu_torch on one CUDA card, through their public wrappers, so that
-two commits can be compared on the same card in one run:
+"""Time K1 (ntHash), K2 (window argmin), K3 (minimizer compaction) and K4
+(Bloom-filter insert) of one checkout of ntsynt_tpu_torch on one CUDA
+card, through their public wrappers, so that two commits can be compared
+on the same card in one run:
 
     python3 kernel_ab.py --root OLD_CHECKOUT --out a.json
     python3 kernel_ab.py --root . --out b.json
@@ -10,9 +11,14 @@ Each shape reports ms (device time: launches captured in one CUDA graph,
 its replay timed with CUDA events) and wrapper_ms (CUDA events around a
 Python loop of the same calls, which counts the wrapper's host time
 wherever the card waits for it), with chip_smoke.py's timers. Inputs
-are random 64-bit keys made from --seed with numpy. K4 at the repeat
-walk's shape inserts a new segment's keys in each call, as the walk
-does.
+are made from --seed with numpy: random 64-bit keys, and random codes
+with 0.1% N for K1. K1 and K4 at the repeat walk's shape take a new
+segment in each call, as the walk does. K3 compacts K2's output at
+w=1000 over a legit mask with contig gaps, and at the refinement
+shapes; its wrapper syncs the host once (twice before the one-pass
+design) to size its result, so its device time captures the launches
+alone: compact_launch where the checkout has it, else the two C entry
+points of the three-kernel design with buffers sized beforehand.
 """
 
 import argparse
@@ -29,6 +35,36 @@ K2_SHAPES = [(1 << 26, 1000), (12_102, 250), (3_370, 100), (3_370, 10)]
 # (keys, bits): the main path's segment into the 100 Mbp common filter,
 # and the repeat walk's segment into the 2^33-bit repeat filter
 K4_SHAPES = [(1 << 26, 32), (1 << 20, 33)]
+# (k-mers, k): the main path's segment and the repeat walk's segment
+K1_SHAPES = [(1 << 26, 24), (1 << 20, 24)]
+# (keys, w) whose windows K3 compacts: the main path's segment and the
+# refinement shapes of K2_SHAPES
+K3_SHAPES = [(1 << 26, 1000), (12_102, 250), (3_370, 100), (3_370, 10)]
+
+
+def k3_device_fn(torch, sketch_device, arg, minv, legit):
+    """A callable that launches K3 once on these inputs without a host
+    sync, for either design of the checkout."""
+    if hasattr(sketch_device, "compact_launch"):
+        return lambda: sketch_device.compact_launch(arg, minv, legit)
+    from ntsynt_tpu_torch.ops import _kernels
+
+    lib, dev = _kernels.lib(), arg.device
+    nw = arg.shape[0]
+    m = sketch_device.compact_minimizers(arg, minv, legit)[0].shape[0]
+    offsets = torch.empty(-(-nw // 1024), dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    pos = torch.empty(m, dtype=torch.int64, device=dev)
+    hsh = torch.empty(m, dtype=torch.int64, device=dev)
+
+    def launch():
+        stream = _kernels.stream_ptr(dev)
+        lib.ntsynt_compact_count(arg.data_ptr(), minv.data_ptr(), legit.data_ptr(), nw,
+                                 offsets.data_ptr(), total.data_ptr(), stream)
+        lib.ntsynt_compact_scatter(arg.data_ptr(), minv.data_ptr(), legit.data_ptr(), nw,
+                                   offsets.data_ptr(), pos.data_ptr(), hsh.data_ptr(), stream)
+
+    return launch
 
 
 def main(argv=None) -> int:
@@ -51,7 +87,7 @@ def main(argv=None) -> int:
     from chip_smoke import cuda_time_ms, device_ms
 
     sys.path.insert(0, root)
-    from ntsynt_tpu_torch.ops import bloom, winmin
+    from ntsynt_tpu_torch.ops import bloom, nthash, sketch_device, winmin
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
@@ -62,7 +98,35 @@ def main(argv=None) -> int:
            "nvidia_smi": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                capture_output=True, text=True, timeout=60).stdout.strip(),
-           "k2": [], "k4": []}
+           "k1": [], "k2": [], "k3": [], "k4": []}
+    codes_np = rng.integers(0, 4, (1 << 26) + 23, dtype=np.uint8)
+    codes_np[rng.random(codes_np.shape[0]) < 0.001] = 4
+    codes = torch.from_numpy(codes_np).to(dev)
+    for n, k in K1_SHAPES:
+        segs = [codes[i * n:(i + 1) * n + k - 1] for i in range(min(10, (1 << 26) // n))]
+        fns = [lambda c=c: nthash.hash_kmers(c, k, n) for c in segs]
+        reps = args.reps if n < 1 << 26 else 10
+        out["k1"].append(dict(kmers=n, k=k, ms=device_ms(fns, reps),
+                              wrapper_ms=cuda_time_ms(fns[0], reps)))
+    for n, w in K3_SHAPES:
+        key = nthash.hash_kmers(codes[: n + 23], 24, n)[0]
+        arg, minv = winmin.window_argmin(key, w)
+        del key
+        nw = arg.shape[0]
+        legit_np = np.ones(nw, dtype=bool)
+        for gap in rng.integers(0, max(nw - 2000, 1), max(nw >> 20, 2)):
+            legit_np[gap : gap + 1024] = False
+        legit = torch.from_numpy(legit_np).to(dev)
+        m = sketch_device.compact_minimizers(arg, minv, legit)[0].shape[0]
+        reps = args.reps if n < 1 << 26 else 10
+        out["k3"].append(dict(
+            keys=n, w=w, windows=nw, minimizers=m,
+            ms=device_ms(k3_device_fn(torch, sketch_device, arg, minv, legit), reps),
+            wrapper_ms=cuda_time_ms(lambda: sketch_device.compact_minimizers(arg, minv, legit),
+                                    reps)))
+        del arg, minv, legit
+    del codes
+    torch.cuda.empty_cache()
     for n, w in K2_SHAPES:
         keys = big[:n].clone()
         reps = args.reps if n < 1 << 20 else 5

@@ -48,15 +48,13 @@ _LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    # codes, n_kmers, k, tables, mult, key, canon, valid, stream
-    "ntsynt_nthash": [_P, _I64, ctypes.c_int, _P, ctypes.c_uint64, _P, _P, _P, _P],
+    # codes, n_kmers, k, tables (host), mult, run, key, canon, valid, stream
+    "ntsynt_nthash": [_P, _I64, ctypes.c_int, _P, ctypes.c_uint64, ctypes.c_int, _P, _P, _P, _P],
     # keys, n, w, tile, g, tw, cs, arg, minv, stream
     "ntsynt_winmin": [_P, _I64, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       _P, _P, _P],
-    # arg, minv, legit, nw, block_counts, total, stream
-    "ntsynt_compact_count": [_P, _P, _P, _I64, _P, _P, _P],
-    # arg, minv, legit, nw, block_offsets, out_pos, out_hash, stream
-    "ntsynt_compact_scatter": [_P, _P, _P, _I64, _P, _P, _P, _P],
+    # arg, minv, legit, nw, scratch, out_pos, out_hash, stream
+    "ntsynt_compact": [_P, _P, _P, _I64, _P, _P, _P, _P],
     # words, canon, valid, n, bits_log2, stream
     "ntsynt_bf_insert": [_P, _P, _P, _I64, ctypes.c_int, _P],
     # canon, valid, n, bits_log2, cell_log2, counts, stream

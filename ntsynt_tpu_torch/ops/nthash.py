@@ -11,15 +11,24 @@ by) and its canonical hash (the Bloom-filter key) are
 with ``srol`` the ntHash2 split rotate (independent left rotations of
 the low 33 and high 31 bits) and MS = 0x90b45d39fb6da1fa. Per-position
 tables ``TF[j][b]``, ``TR[j][b]`` turn hashing into k independent
-lookup+XOR steps.
+lookup+XOR steps (the plain version). The kernel rolls instead: with
+``sror`` the inverse of ``srol`` and SEED[N] = 0,
+
+    f_{i+1} = srol(f_i) ^ srol^k(SEED[s_i]) ^ SEED[s_{i+k}]
+    r_{i+1} = sror(r_i) ^ sror(SEED[comp s_i]) ^ srol^(k-1)(SEED[comp s_{i+k}])
+
+and the first k-mer of a run is the same "in" step applied k times from
+f = r = 0 (``roll_tables``). An N adds nothing to either sum, so the
+recurrence stays exact across N; validity is tracked apart.
 
 Bases are coded A=0, C=1, G=2, T=3, N/other=4. Hashes are ``int64``
 tensors holding the uint64 bit pattern: additions and multiplications
 wrap mod 2^64 as in uint64, and a logical right shift is an arithmetic
 shift followed by a mask.
 
-``hash_kmers`` launches the CUDA kernel (csrc/nthash.cu) for a CUDA
-tensor and runs ``hash_kmers_plain`` for a CPU tensor.
+``hash_kmers`` launches the CUDA kernel (csrc/nthash.cu, rolling over
+codes staged in shared memory) for a CUDA tensor and runs
+``hash_kmers_plain`` for a CPU tensor.
 """
 
 import functools
@@ -61,6 +70,35 @@ def hash_tables(k: int):
     tf = rots[::-1].copy()
     tr = rots[:, COMP_CODE].copy()
     return tf, tr
+
+
+def _sror1_np(x: np.ndarray) -> np.ndarray:
+    """Inverse of _srol1_np: bits[32:0] and bits[63:33] rotate right."""
+    x = x.astype(np.uint64)
+    m = ((x & np.uint64(1)) << np.uint64(32)) | ((x & np.uint64(1 << 33)) << np.uint64(30))
+    return ((x >> np.uint64(1)) & np.uint64(0xFFFFFFFEFFFFFFFF)) | m
+
+
+SROL_PERIOD = 33 * 31  # srol^SROL_PERIOD is the identity
+
+
+def _srol_np(x: np.ndarray, times: int) -> np.ndarray:
+    for _ in range(times % SROL_PERIOD):
+        x = _srol1_np(x)
+    return x.astype(np.uint64)
+
+
+@functools.lru_cache(maxsize=None)
+def roll_tables(k: int):
+    """(out_f, in_f, out_r, in_r) uint64 [5] each, for the rolling
+    recurrence: a k-mer's hashes step to the next one's by
+      f' = srol(f) ^ out_f[outgoing] ^ in_f[incoming]
+      r' = sror(r) ^ out_r[outgoing] ^ in_r[incoming]
+    with out_f[b] = srol^k(SEED[b]), in_f[b] = SEED[b],
+    out_r[b] = sror(SEED[COMP[b]]) and in_r[b] = srol^(k-1)(SEED[COMP[b]]).
+    Entry 4 (N) is 0 in all four."""
+    comp = SEED_TAB[COMP_CODE]
+    return _srol_np(SEED_TAB, k), SEED_TAB.copy(), _sror1_np(comp), _srol_np(comp, k - 1)
 
 
 def mix_multiplier(k: int) -> int:
@@ -167,24 +205,67 @@ def hash_kmers_plain(codes: torch.Tensor, k: int, n_kmers: int):
     return key, canon, valid
 
 
+# K1's launch (csrc/nthash.cu): blocks of THREADS threads, each thread
+# rolling a run of m * PHASE consecutive k-mers (PHASE: the k-mers whose
+# outputs go out together). A warp's stores of one phase cover 32 lines
+# at a stride of m lines: m = 1 makes them contiguous, which measured
+# fastest at k=24; a longer k takes the smallest odd m (no power-of-two
+# stride) that keeps the direct hash of a run's first k-mer to at most
+# two steps a k-mer, and small segments cut m down so that the grid
+# keeps BLOCKS_PER_SM blocks per SM. Codes of k <= MAX_STAGED_K are all
+# staged in shared memory; a larger k reads the incoming codes from
+# device memory.
+THREADS = 128
+PHASE = 16
+MAX_RUN = 240
+BLOCKS_PER_SM = 2
+MAX_STAGED_K = 4096
+
+
+def nthash_plan(n_kmers: int, k: int, sm_count: int):
+    """(run, tiles, staged) of K1 for n_kmers k-mers on a card of
+    sm_count SMs: the k-mers a thread rolls, the blocks of THREADS * run
+    k-mers that cover n_kmers, and whether every code a block reads is
+    staged in shared memory."""
+    m = min(MAX_RUN // PHASE, -(-k // (2 * PHASE)) | 1)
+    while m > 1 and -(-n_kmers // (THREADS * PHASE * m)) < BLOCKS_PER_SM * sm_count:
+        m -= 1
+    run = PHASE * m
+    return run, -(-n_kmers // (THREADS * run)), k <= MAX_STAGED_K
+
+
 @functools.lru_cache(maxsize=None)
-def _device_tables(k: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(_tables_i64(k)).to(device)
+def _roll_tables_u64(k: int) -> np.ndarray:
+    """The kernel's table layout, uint64 [20]: (out_f, out_r) for codes
+    0-4, then (in_f, in_r) for codes 0-4 (cached: read-only)."""
+    out_f, in_f, out_r, in_r = roll_tables(k)
+    tab = np.ascontiguousarray(
+        np.concatenate([np.stack([out_f, out_r], 1).reshape(-1),
+                        np.stack([in_f, in_r], 1).reshape(-1)]), dtype=np.uint64)
+    tab.setflags(write=False)
+    return tab
+
+
+@functools.lru_cache(maxsize=None)
+def _roll_tables_ptr(k: int) -> int:
+    """Host address of _roll_tables_u64(k), which the launch reads (the
+    cached array stays alive)."""
+    return _roll_tables_u64(k).ctypes.data
 
 
 def hash_kmers(codes: torch.Tensor, k: int, n_kmers: int):
     """Hash the n_kmers k-mers starting at codes[0 .. n_kmers).
 
     Args:
-      codes: uint8 [>= n_kmers + k - 1] base codes.
+      codes: uint8 [>= n_kmers + k - 1] base codes (any code >= 4 is N).
     Returns (key int64, canon int64, valid bool), each [n_kmers]: key is
     the printed hash, or the all-ones sentinel (-1) for an invalid k-mer;
     canon is the canonical hash (unmasked).
     """
     if codes.dtype != torch.uint8 or codes.dim() != 1:
         raise ValueError("hash_kmers: codes must be a 1-D uint8 tensor")
-    if n_kmers < 0 or codes.shape[0] < n_kmers + k - 1:
-        raise ValueError("hash_kmers: codes shorter than n_kmers + k - 1")
+    if k < 1 or n_kmers < 0 or codes.shape[0] < n_kmers + k - 1:
+        raise ValueError("hash_kmers: need k >= 1 and codes of at least n_kmers + k - 1")
     if codes.device.type == "cpu":
         return hash_kmers_plain(codes, k, n_kmers)
     _kernels.require_cuda("hash_kmers", codes)
@@ -194,9 +275,9 @@ def hash_kmers(codes: torch.Tensor, k: int, n_kmers: int):
     valid = torch.empty(n_kmers, dtype=torch.bool, device=dev)
     if n_kmers == 0:
         return key, canon, valid
-    tabs = _device_tables(k, str(dev))
+    run, _, _ = nthash_plan(n_kmers, k, _kernels.sm_count(dev.index))
     rc = _kernels.lib().ntsynt_nthash(
-        codes.data_ptr(), n_kmers, k, tabs.data_ptr(), mix_multiplier(k),
+        codes.data_ptr(), n_kmers, k, _roll_tables_ptr(k), mix_multiplier(k), run,
         key.data_ptr(), canon.data_ptr(), valid.data_ptr(), _kernels.stream_ptr(dev),
     )
     _kernels.check("nthash", rc)

@@ -8,7 +8,8 @@ host instead), take
 each window's leftmost argmin and min hash (K2, ops/winmin), and compact
 the run starts of the argmin sequence over live windows (legit and
 holding a valid k-mer) into dense (position, hash) arrays (K3, this
-module). The host then maps stream positions to contigs (ops/sketch).
+module: one launch, a chained scan with decoupled look-back). The host
+then maps stream positions to contigs (ops/sketch).
 
 Every k-mer is probed, which gives the same selections as the JAX
 package's iterative exclusion of non-solid window winners
@@ -39,48 +40,83 @@ def compact_plain(arg, minv, legit):
     return arg[idx], minv[idx]
 
 
-def compact_minimizers(arg, minv, legit):
+# K3's tile (csrc/compact.cu): windows per block, each block one tile
+COMPACT_TILE = 4096
+
+
+def compact_scratch_words(nw: int) -> int:
+    """64-bit scratch words K3 needs for nw windows: its tile ticket, the
+    total, and one status word per tile."""
+    return 2 + -(-nw // COMPACT_TILE)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()  # K3 loads 16 bytes at a time
+
+
+def compact_launch(arg, minv, legit, out=None):
+    """Launch K3 once, without a host sync: returns (pos, hash, scratch),
+    pos and hash of at least nw entries (out, or new tensors of nw) of
+    which the first scratch[1] are the flagged windows' (see
+    compact_minimizers). Checked CUDA tensors, nw >= 1."""
+    nw = arg.shape[0]
+    dev = arg.device
+    arg, minv, legit = _aligned(arg), _aligned(minv), _aligned(legit)
+    # cleared by the entry point on the stream (a memset, not a kernel)
+    scratch = torch.empty(compact_scratch_words(nw), dtype=torch.int64, device=dev)
+    if out is None:
+        out = (torch.empty(nw, dtype=torch.int64, device=dev),
+               torch.empty(nw, dtype=torch.int64, device=dev))
+    pos, hsh = out
+    rc = _kernels.lib().ntsynt_compact(
+        arg.data_ptr(), minv.data_ptr(), legit.data_ptr(), nw, scratch.data_ptr(),
+        pos.data_ptr(), hsh.data_ptr(), _kernels.stream_ptr(dev),
+    )
+    _kernels.check("compact", rc)
+    _kernels.count("compact", nw)
+    return pos, hsh, scratch
+
+
+def compact_minimizers(arg, minv, legit, out=None):
     """Compact the selected minimizers of a run of windows.
 
     Args:
       arg: int64 [nw] each window's leftmost argmin position.
       minv: int64 [nw] each window's min hash (all-ones = no valid k-mer).
       legit: bool [nw] windows lying inside one contig.
+      out: optional (pos, hash) int64 tensors of at least nw entries, on
+        arg's device, to write the result into. They may be arg and minv
+        themselves: each result lands at or before the window it comes
+        from, after every tile that reads that place has read it (the
+        windows are then overwritten), so no nw-entry buffer is needed.
     A window is live when legit and valid, and flagged when it is live
     and its argmin differs from the previous window's, or the previous
     window is not live. Returns (pos int64, hash int64) of the flagged
-    windows in window order: each selected position appears once.
+    windows in window order: each selected position appears once. On the
+    card they are views of nw-entry buffers (out, or new ones), sized by
+    the one host sync, which reads the kernel's total.
     """
     nw = arg.shape[0]
     if arg.dtype != torch.int64 or minv.dtype != torch.int64 or legit.dtype != torch.bool:
         raise ValueError("compact_minimizers: int64 arg/minv and bool legit expected")
     if minv.shape != (nw,) or legit.shape != (nw,):
         raise ValueError("compact_minimizers: arg, minv and legit must have one length")
+    if out is not None and any(t.dtype != torch.int64 or t.dim() != 1 or t.shape[0] < nw
+                               or t.device != arg.device for t in out):
+        raise ValueError("compact_minimizers: out must be two int64 tensors of >= nw entries")
     if arg.device.type == "cpu":
-        return compact_plain(arg, minv, legit)
-    _kernels.require_cuda("compact_minimizers", arg, minv, legit)
-    dev = arg.device
+        pos, hsh = compact_plain(arg, minv, legit)
+        if out is None:
+            return pos, hsh
+        m = pos.shape[0]
+        out[0][:m], out[1][:m] = pos, hsh
+        return out[0][:m], out[1][:m]
+    _kernels.require_cuda("compact_minimizers", arg, minv, legit, *(out or ()))
     if nw == 0:
         return arg.new_empty(0), minv.new_empty(0)
-    lib = _kernels.lib()
-    stream = _kernels.stream_ptr(dev)
-    offsets = torch.empty(-(-nw // 1024), dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    rc = lib.ntsynt_compact_count(
-        arg.data_ptr(), minv.data_ptr(), legit.data_ptr(), nw,
-        offsets.data_ptr(), total.data_ptr(), stream,
-    )
-    _kernels.check("compact_count", rc)
-    m = int(total.item())
-    pos = torch.empty(m, dtype=torch.int64, device=dev)
-    hsh = torch.empty(m, dtype=torch.int64, device=dev)
-    rc = lib.ntsynt_compact_scatter(
-        arg.data_ptr(), minv.data_ptr(), legit.data_ptr(), nw,
-        offsets.data_ptr(), pos.data_ptr(), hsh.data_ptr(), stream,
-    )
-    _kernels.check("compact_scatter", rc)
-    _kernels.count("compact", nw)
-    return pos, hsh
+    pos, hsh, scratch = compact_launch(arg, minv, legit, out)
+    m = int(scratch[1].item())
+    return pos[:m], hsh[:m]
 
 
 def dedupe_pos_hash(pos: np.ndarray, h: np.ndarray):
@@ -127,7 +163,8 @@ def sketch_stream(codes, legit, k: int, w: int, common_bf=None, repeat_bf=None,
         del canon, valid
         arg, minv = winmin.window_argmin(key, w)
         del key
-        pos, hsh = compact_minimizers(arg, minv, legit[s : s + m])
+        # compacted in place: the results overwrite the windows
+        pos, hsh = compact_minimizers(arg, minv, legit[s : s + m], out=(arg, minv))
         pos_l.append((pos + s).cpu().numpy())
         hash_l.append(hsh.cpu().numpy().view(np.uint64))
     if not pos_l:
