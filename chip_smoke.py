@@ -15,7 +15,9 @@ Phases, each printing one JSON line with its elapsed seconds:
      timed; K3's launches without the wrapper's host sync) apart from
      its wrapper's (wrapper_ms: a timed loop of calls); K1 and K4 also
      the repeat walk's shape, K4 a 2^34-bit filter and its bin/apply
-     split, K5 its cascade and bin/apply split;
+     split, K5 its cascade, its two single-cell rows, its bin/apply split
+     and its edge cases (k5_edges); K2 also the one PyTorch expression
+     that computes it (library_ms, k2_library);
   4. main path: two 100 Mbp genomes (0.1% SNPs, one 50 kb inversion) are
      generated into a temporary directory and run through the port's CLI
      (``python -m ntsynt_tpu_torch a.fa b.fa -d 1``) on the card; the
@@ -263,10 +265,23 @@ def find_inversion(rows, inv_start: int, inv_end: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_winmin(winmin, keys, w: int, reps: int = 10) -> dict:
+def k2_library(torch, keys, w: int):
+    """K2's function as one PyTorch reduction (the yardstick, used nowhere
+    in the port): the minimum of each window of the sign-flipped keys,
+    torch.min giving the first minimal index. Returns (arg, minv)."""
+    sign = -(1 << 63)  # maps uint64 order onto int64 order
+    minv, rel = (keys ^ sign).unfold(0, w, 1).min(dim=1)
+    return rel + torch.arange(rel.shape[0], device=keys.device), minv ^ sign
+
+
+def time_winmin(winmin, keys, w: int, reps: int = 10, library_keys: int | None = None) -> dict:
     """K2 vs its plain version on keys at window w: check, then time its
     device time (ms, a CUDA graph of launches) and its wrapper's time
-    (wrapper_ms, a loop of calls)."""
+    (wrapper_ms, a loop of calls); and the library expression
+    (k2_library) on the first library_keys keys (all by default), with
+    whether it equals the plain version bit for bit."""
+    import torch
+
     from ntsynt_tpu_torch.ops import _kernels
 
     arg, minv = winmin.window_argmin(keys, w)
@@ -274,11 +289,19 @@ def time_winmin(winmin, keys, w: int, reps: int = 10) -> dict:
     err = require_equal(f"K2 w={w}", [(arg, parg), (minv, pminv)])
     del arg, minv, parg, pminv
     m = keys.shape[0]
+    lib_keys = keys[: library_keys or m]
+    larg, lminv = k2_library(torch, lib_keys, w)
+    parg, pminv = winmin.window_argmin_plain(lib_keys, w)
+    library_equal = bool(torch.equal(larg, parg) and torch.equal(lminv, pminv))
+    del larg, lminv, parg, pminv
     return dict(
         max_abs_err=err,
         ms=device_ms(lambda: winmin.window_argmin(keys, w), reps),
         wrapper_ms=cuda_time_ms(lambda: winmin.window_argmin(keys, w), reps),
         plain_ms=cuda_time_ms(lambda: winmin.window_argmin_plain(keys, w), 1),
+        library_ms=cuda_time_ms(lambda: k2_library(torch, lib_keys, w), 1),
+        library_shape=f"{lib_keys.shape[0]} keys, w={w}",
+        library_equals_plain=library_equal,
         bound_ms=(8 * m + 16 * (m - w + 1)) / HBM_BYTES_PER_S * 1e3,
         plan=list(winmin.winmin_plan(m, w, _kernels.sm_count(keys.device.index))),
         shape=f"{m} keys, w={w}",
@@ -475,7 +498,8 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     # the refinement rounds' shapes are timed after the main path has
     # recorded them (phase_winmin_refine)
     k2 = time_winmin(winmin, key, 1000)
-    k2_stream = time_winmin(winmin, key, 10_000, reps=5)
+    # the library expression reads w keys a window: 2^22 keys at w=10,000
+    k2_stream = time_winmin(winmin, key, 10_000, reps=5, library_keys=1 << 22)
     arg_main, minv_main = winmin.window_argmin(key, 1000)
     k2["edge_cases"] = k2_edges(torch, dev, winmin, rng)
     kernels["winmin"].update(k2, by_w={"1000": k2, "10000": k2_stream})
@@ -515,7 +539,7 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     # partition passes) and step 3 (the per-cell apply), each timed
     # alone; and the direct route (one global atomicOr per key, the
     # kernel's former design) beside it
-    binned, offsets = bloom.bin_keys(canon, valid, bits)
+    binned, offsets, _ = bloom.bin_keys(canon, valid, bits)
     stage_ms = dict(
         bin=device_ms(lambda: bloom.bin_keys(canon, valid, bits)),
         apply=device_ms(lambda: bloom.apply_bins(words, binned, offsets, bits)),
@@ -562,7 +586,7 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
         plain_ms=cuda_time_ms(lambda: bloom.insert_words_plain(words, canon, valid, bits), 2),
         bound_ms=k4_bound,
         shape=f"{n} keys into 2^{bits} bits ({hit_words} distinct words hit)",
-        route=bloom.insert_route(n, bits),
+        insert_route=bloom.insert_route(n, bits),
         stage_ms=stage_ms,
         direct_ms_same_shape=direct_ms,
         repeat_walk=repeat_walk,
@@ -570,14 +594,77 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
         edge_cases=k4_cases,
     )
 
-    # K5, insert: the same keys into the same filter size, against its
-    # plain version (the union K4 computed above, another way)
-    swept = torch.zeros(nwords, dtype=torch.int32, device=dev)
+    # K5 against its plain version at the edges of its design and at its
+    # four timed rows, then timed (phase_k5)
+    kernels["bf_sweep"].update(phase_k5(torch, dev, canon, valid, bits, words, hit_words,
+                                        k4_bound, kernels["bf_insert"]["ms"]))
+    del words, key, canon, valid, codes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _kernels.reset_launches()
+
+
+def k5_check(torch, bf_sweep, label: str, c, v, bits: int, prev=None) -> float:
+    """K5 (insert, or cascade over prev) into zeroed words against its
+    plain version on the same inputs."""
+    words = torch.zeros((1 << bits) // 32, dtype=torch.int32, device=c.device)
+    if prev is None:
+        bf_sweep.insert_segment(words, c, v, bits)
+    else:
+        bf_sweep.cascade_segment(prev, words, c, v, bits)
+    ref = bf_sweep.sweep_plain(torch.zeros_like(words), c, v, bits, prev=prev)
+    return require_equal(f"K5 {label}", [(words, ref)])
+
+
+def k5_edges(torch, bf_sweep, canon, valid) -> int:
+    """K5 vs its plain version, insert and cascade (over a prev holding
+    every other key, over an empty prev and over a full one): n = 1, a
+    partition tile +- 1, no valid key, every key in one cell of a 2^16-bit
+    filter, in one 2^19-bit cell and in one 2^24-bit cell of a 2^32-bit
+    filter, views of canon and valid at an odd offset, and 2^22 + 3 keys
+    at every geometry from 2^16 to 2^32 bits."""
+    m = 1 << 22
+    cases = [("n=1", 32, canon[:1], valid[:1]),
+             ("tile-1", 32, canon[:4095], valid[:4095]),
+             ("tile+1", 32, canon[:4097], valid[:4097]),
+             ("no valid key", 32, canon[:100_001], torch.zeros_like(valid[:100_001])),
+             ("one cell of 2^16", 16, canon[:m], valid[:m]),
+             ("one 2^19-bit cell", 32, canon[:m] & ((1 << 19) - 1), valid[:m]),
+             ("one 2^24-bit cell", 32, canon[:m] & ((1 << 24) - 1) | (7 << 24), valid[:m]),
+             ("odd-offset view", 32, canon[1 : (1 << 20) + 1], valid[1 : (1 << 20) + 1])]
+    cases += [(f"2^{b} bits", b, canon[: m + 3], valid[: m + 3])
+              for b in (16, 20, 21, 24, 25, 28, 29, 31, 32)]
+    for label, bits, c, v in cases:
+        label = f"{label}, {c.shape[0]} keys into 2^{bits} bits"
+        k5_check(torch, bf_sweep, f"insert {label}", c, v, bits)
+        n_words = (1 << bits) // 32
+        half = bf_sweep.sweep_plain(torch.zeros(n_words, dtype=torch.int32, device=c.device),
+                                    c[::2], v[::2], bits)
+        k5_check(torch, bf_sweep, f"cascade {label}", c, v, bits, prev=half)
+        k5_check(torch, bf_sweep, f"cascade, empty prev, {label}", c, v, bits,
+                 prev=torch.zeros_like(half))
+        k5_check(torch, bf_sweep, f"cascade, full prev, {label}", c, v, bits,
+                 prev=torch.full_like(half, -1))
+        del half
+    torch.cuda.empty_cache()
+    return 4 * len(cases)
+
+
+def phase_k5(torch, dev, canon, valid, bits: int, k4_words, hit_words: int, k4_bound: float,
+             k4_ms: float) -> dict:
+    """K5 against its plain version and K4's words, at its edges and its
+    four timed rows (insert and cascade of the main path's segment into
+    the 100 Mbp filter's size; 2^22 keys into a 2^16-bit filter and into
+    one 2^19-bit cell of a 2^32-bit one), then its device times."""
+    from ntsynt_tpu_torch.ops import bf_sweep, bloom
+
+    n = canon.shape[0]
+    swept = torch.zeros_like(k4_words)
     bf_sweep.insert_segment(swept, canon, valid, bits)
     pswept = bf_sweep.sweep_plain(torch.zeros_like(swept), canon, valid, bits)
-    err = require_equal("K5 insert", [(swept, pswept), (swept, words)])
+    err = require_equal("K5 insert", [(swept, pswept), (swept, k4_words)])
     del pswept
-    # K5, cascade: prev holds the first half of the keys
+    # cascade: prev holds the first half of the keys
     half = n // 2
     prev = bf_sweep.sweep_plain(torch.zeros_like(swept), canon[:half], valid[:half], bits)
     new = bf_sweep.cascade_segment(prev, torch.zeros_like(swept), canon, valid, bits)
@@ -587,9 +674,6 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     del pnew
     cascade = dict(
         max_abs_err=err_c,
-        ms=device_ms(lambda: bf_sweep.cascade_segment(prev, new, canon, valid, bits)),
-        wrapper_ms=cuda_time_ms(
-            lambda: bf_sweep.cascade_segment(prev, new, canon, valid, bits), 10),
         plain_ms=cuda_time_ms(
             lambda: bf_sweep.sweep_plain(new, canon, valid, bits, prev=prev), 2),
         # keys once, prev's hit words read, new's written words read and written
@@ -597,53 +681,62 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
         shape=f"{n} keys into 2^{bits} bits over a prev of {half} keys "
               f"({new_words} words of new set)",
     )
-    del new, prev
     # a single-cell filter (2^16 bits) and an all-in-one-cell segment of
     # a 2^32-bit filter, on 2^22 of the keys
     sub = min(1 << 22, n)
     c_sub, v_sub = canon[:sub].contiguous(), valid[:sub].contiguous()
-    one_cell = c_sub & ((1 << (bf_sweep.CELL_LOG2 + 5)) - 1)
-    small = {}
+    rows, small = {}, {}
     for label, sbits, keys in (("single_cell_2^16", 16, c_sub),
-                               ("one_cell_of_2^32", bits, one_cell)):
+                               ("one_cell_of_2^32", bits, c_sub & ((1 << 19) - 1))):
         sw = torch.zeros((1 << sbits) // 32, dtype=torch.int32, device=dev)
         bf_sweep.insert_segment(sw, keys, v_sub, sbits)
         e = require_equal(f"K5 {label}", [
             (sw, bf_sweep.sweep_plain(torch.zeros_like(sw), keys, v_sub, sbits))])
         hits = torch.unique(bloom.bit_index(keys[v_sub], sbits)[0]).numel()
+        rows[label] = (sw, keys, v_sub, sbits)
         small[label] = dict(
             max_abs_err=e,
-            ms=device_ms(lambda: bf_sweep.insert_segment(sw, keys, v_sub, sbits), 5),
-            wrapper_ms=cuda_time_ms(lambda: bf_sweep.insert_segment(sw, keys, v_sub, sbits), 5),
             plain_ms=cuda_time_ms(lambda: bf_sweep.sweep_plain(sw, keys, v_sub, sbits), 2),
             bound_ms=(9 * sub + 8 * hits) / HBM_BYTES_PER_S * 1e3,
             shape=f"{sub} keys into 2^{sbits} bits ({hits} distinct words hit)",
         )
-        del sw
-    # where K5's time goes: binning (count, prefix sum, scatter) and the
-    # per-cell shared-memory apply, each timed alone
-    binned, offsets = bf_sweep.bin_keys(canon, valid, bits)
+    edge_cases = k5_edges(torch, bf_sweep, canon, valid)
+    for label, (sw, keys, v, sbits) in rows.items():
+        small[label].update(
+            ms=device_ms(lambda: bf_sweep.insert_segment(sw, keys, v, sbits), 5),
+            wrapper_ms=cuda_time_ms(lambda: bf_sweep.insert_segment(sw, keys, v, sbits), 5),
+        )
+    # where the time goes: the binning (count, scan with the slice plan,
+    # partition passes) and the apply (per-cell shared-memory OR), each
+    # timed alone
+    bins = bf_sweep.bin_keys(canon, valid, bits)
     stage_ms = dict(
         bin=device_ms(lambda: bf_sweep.bin_keys(canon, valid, bits)),
-        apply=device_ms(lambda: bf_sweep.apply_bins(swept, binned, offsets, bits)),
+        apply=device_ms(lambda: bf_sweep.apply_bins(swept, *bins, bits)),
     )
-    del binned, offsets
-    kernels["bf_sweep"].update(
-        stage_ms=stage_ms,
+    bins = bf_sweep.bin_keys(canon, valid, bits, cascade=True)
+    cascade.update(
+        ms=device_ms(lambda: bf_sweep.cascade_segment(prev, new, canon, valid, bits)),
+        wrapper_ms=cuda_time_ms(
+            lambda: bf_sweep.cascade_segment(prev, new, canon, valid, bits), 10),
+        stage_ms=dict(apply=device_ms(lambda: bf_sweep.apply_bins(new, *bins, bits, prev))),
+    )
+    del bins, prev, new, rows
+    torch.cuda.empty_cache()
+    return dict(
         max_abs_err=max(err, err_c, *(d["max_abs_err"] for d in small.values())),
         ms=device_ms(lambda: bf_sweep.insert_segment(swept, canon, valid, bits)),
         wrapper_ms=cuda_time_ms(lambda: bf_sweep.insert_segment(swept, canon, valid, bits), 10),
-        plain_ms=cuda_time_ms(lambda: bf_sweep.sweep_plain(swept, canon, valid, bits), 2),
+        plain_ms=cuda_time_ms(
+            lambda: bf_sweep.sweep_plain(torch.zeros_like(k4_words), canon, valid, bits), 2),
         bound_ms=k4_bound,
         shape=f"{n} keys into 2^{bits} bits ({hit_words} distinct words hit), insert",
-        k4_ms_same_shape=kernels["bf_insert"]["ms"],
+        stage_ms=stage_ms,
+        k4_ms_same_shape=k4_ms,
         cascade=cascade,
+        edge_cases=edge_cases,
         **small,
     )
-    del words, swept, key, canon, valid, codes, c_sub, v_sub, one_cell
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    _kernels.reset_launches()
 
 
 INV_START = int(GENOME_BP * 0.4)
@@ -878,7 +971,7 @@ def main() -> int:
         phase_kernels(torch, dev, kernels)
         info["kernels"] = {n: {k: v for k, v in d.items() if k in
                                ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
-                                           "shape")}
+                                "library_ms", "shape")}
                            for n, d in kernels.items()}
 
     tmp = tempfile.mkdtemp(prefix="ntsynt_smoke_")

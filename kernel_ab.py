@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1 (ntHash), K2 (window argmin), K3 (minimizer compaction) and K4
-(Bloom-filter insert) of one checkout of ntsynt_tpu_torch on one CUDA
-card, through their public wrappers, so that two commits can be compared
-on the same card in one run:
+"""Time K1 (ntHash), K2 (window argmin), K3 (minimizer compaction), K4
+(Bloom-filter insert) and K5 (the binned Bloom-filter sweep) of one
+checkout of ntsynt_tpu_torch on one CUDA card, through their public
+wrappers, so that two commits can be compared on the same card in one
+run:
 
     python3 kernel_ab.py --root OLD_CHECKOUT --out a.json
     python3 kernel_ab.py --root . --out b.json
@@ -18,7 +19,11 @@ w=1000 over a legit mask with contig gaps, and at the refinement
 shapes; its wrapper syncs the host once (twice before the one-pass
 design) to size its result, so its device time captures the launches
 alone: compact_launch where the checkout has it, else the two C entry
-points of the three-kernel design with buffers sized beforehand.
+points of the three-kernel design with buffers sized beforehand. K5
+runs its four rows: insert and cascade (over a prev holding the first
+half of the keys) of the main path's segment into the 100 Mbp filter's
+size, and 2^22 keys into a 2^16-bit filter and into one 2^19-bit cell of
+a 2^32-bit filter.
 """
 
 import argparse
@@ -40,6 +45,10 @@ K1_SHAPES = [(1 << 26, 24), (1 << 20, 24)]
 # (keys, w) whose windows K3 compacts: the main path's segment and the
 # refinement shapes of K2_SHAPES
 K3_SHAPES = [(1 << 26, 1000), (12_102, 250), (3_370, 100), (3_370, 10)]
+# (row, keys, bits, mask of the keys' bits or None): K5's rows
+K5_ROWS = [("insert", 1 << 26, 32, None), ("cascade", 1 << 26, 32, None),
+           ("single_cell_2^16", 1 << 22, 16, None),
+           ("one_cell_of_2^32", 1 << 22, 32, (1 << 19) - 1)]
 
 
 def k3_device_fn(torch, sketch_device, arg, minv, legit):
@@ -87,7 +96,7 @@ def main(argv=None) -> int:
     from chip_smoke import cuda_time_ms, device_ms
 
     sys.path.insert(0, root)
-    from ntsynt_tpu_torch.ops import bloom, nthash, sketch_device, winmin
+    from ntsynt_tpu_torch.ops import bf_sweep, bloom, nthash, sketch_device, winmin
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
@@ -98,7 +107,7 @@ def main(argv=None) -> int:
            "nvidia_smi": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                capture_output=True, text=True, timeout=60).stdout.strip(),
-           "k1": [], "k2": [], "k3": [], "k4": []}
+           "k1": [], "k2": [], "k3": [], "k4": [], "k5": []}
     codes_np = rng.integers(0, 4, (1 << 26) + 23, dtype=np.uint8)
     codes_np[rng.random(codes_np.shape[0]) < 0.001] = 4
     codes = torch.from_numpy(codes_np).to(dev)
@@ -143,6 +152,21 @@ def main(argv=None) -> int:
             keys=n, bits=bits, ms=device_ms(fns, 10),
             wrapper_ms=cuda_time_ms(fns[0], 10)))
         del words
+        torch.cuda.empty_cache()
+    for row, n, bits, mask in K5_ROWS:
+        words = torch.zeros((1 << bits) // 32, dtype=torch.int32, device=dev)
+        keys = big[:n] if mask is None else big[:n] & mask
+        v = valid[:n]
+        if row == "cascade":
+            prev = torch.zeros_like(words)
+            bf_sweep.insert_segment(prev, keys[: n // 2], v[: n // 2], bits)
+            fn = lambda: bf_sweep.cascade_segment(prev, words, keys, v, bits)  # noqa: E731
+        else:
+            fn = lambda: bf_sweep.insert_segment(words, keys, v, bits)  # noqa: E731
+        out["k5"].append(dict(row=row, keys=n, bits=bits, ms=device_ms(fn, 10),
+                              wrapper_ms=cuda_time_ms(fn, 10)))
+        del words, keys, fn
+        prev = None
         torch.cuda.empty_cache()
     with open(args.out, "w") as fout:
         json.dump(out, fout, indent=1)

@@ -27,13 +27,15 @@
 // Design: the Hopper counterpart of the TPU's sorted streaming pass is a
 // cheap partition of the keys by filter cell followed by a shared-memory
 // apply. A cell is 2^cell_log2 words (2^15: 2^20 bits, 128 KiB, one
-// block's shared memory); a filter under one cell is one cell. With
-// 2^c cells (c up to 16: 65,536 cells at 2^36 bits):
+// block's shared memory; K5, csrc/bf_sweep.cu, bins at 2^14 with the
+// same entry points); a filter under one cell is one cell. With 2^c
+// cells (c up to 16: 65,536 cells at 2^36 bits):
 //   (1) count: persistent blocks histogram the cells of sub-chunks of at
 //       most 65,534 keys in shared memory with 16-bit counters (two to a
 //       word, so 2^16 cells take 128 KiB) and add the non-zero ones to
-//       the global per-cell counts; the wrapper scans them into offsets
-//       (torch.cumsum).
+//       the global per-cell counts; then one block scans them into the
+//       cells' offsets and the partition passes' cursors, and plans the
+//       second pass (and, for K5, each cell's slices).
 //   (2) partition, one pass for c <= 8, else two (an MSD radix
 //       partition): the first by the top c_a = c - c/2 bits of the cell,
 //       the second, within each of those 2^c_a ranges, by the low c/2
@@ -41,7 +43,9 @@
 //       in shared memory, reserves each digit's run with one global
 //       atomicAdd on that digit's cursor, and writes the runs coalesced.
 //       Keys are read with 16-byte loads marked streaming; the second
-//       pass loads its next tile while it sorts the current one.
+//       pass loads its next tile while it sorts the current one, and its
+//       blocks follow the scan's plan, so a range gets blocks by its size
+//       (keys crowded into one range still spread over the card).
 //   (3) apply: one block per cell. A cell with fewer keys than one per 16
 //       of its words ORs them with direct global atomics: loading and
 //       storing 128 KiB (8 bytes a word) costs more than a 32-byte sector
@@ -72,6 +76,7 @@ constexpr int APPLY_BATCH = 8;        // 16-byte loads in flight per thread
 constexpr int MAX_CELL_LOG2 = 15;     // 128 KiB of shared-memory words
 constexpr int MAX_CELLS_LOG2 = 16;    // 128 KiB of 16-bit counters
 constexpr int DIRECT_WORDS_PER_KEY = 16;
+constexpr int SCAN_THREADS = 1024;
 constexpr unsigned NONE = 0xFFFFFFFFu;
 
 __global__ void bf_insert_kernel(unsigned int* __restrict__ words,
@@ -246,21 +251,14 @@ __global__ void partition_keys_kernel(const long long* __restrict__ canon,
   }
 }
 
-// The second pass: within range r (src[ranges[r * stride] ..
-// ranges[(r + 1) * stride])), worked by k_per_range blocks, each value
-// goes to digit v >> shift (cursor r * n_digits + digit) as v mod
+// One block's share src[lo .. hi) of range r in the second pass: each
+// value goes to digit v >> shift (cursor r * n_digits + digit) as v mod
 // 2^shift. Values are loaded a tile ahead.
-__global__ void partition_bins_kernel(const unsigned* __restrict__ src,
-                                      const int* __restrict__ ranges, int stride,
-                                      int k_per_range, int shift, int n_digits,
-                                      int* __restrict__ cursor, unsigned* __restrict__ dst) {
-  __shared__ PartSmem sm;
-  const int r = blockIdx.x / k_per_range, k = blockIdx.x % k_per_range;
-  const int64_t r0 = ranges[(int64_t)r * stride], r1 = ranges[(int64_t)(r + 1) * stride];
-  const int64_t share =
-      ((r1 - r0 + k_per_range - 1) / k_per_range + PART_TILE - 1) / PART_TILE * PART_TILE;
-  const int64_t lo = r0 + k * share;
-  const int64_t hi = lo + share < r1 ? lo + share : r1;
+__device__ __forceinline__ void partition_share(PartSmem& sm,
+                                                const unsigned* __restrict__ src, int64_t lo,
+                                                int64_t hi, int r, int shift, int n_digits,
+                                                int* __restrict__ cursor,
+                                                unsigned* __restrict__ dst) {
   const unsigned vmask = (unsigned)((1ull << shift) - 1ull);
   unsigned next[PART_ITEMS];
 #pragma unroll
@@ -279,6 +277,120 @@ __global__ void partition_bins_kernel(const unsigned* __restrict__ src,
     }
     partition_tile(sm, digit, value, n_digits, cursor + (int64_t)r * n_digits, dst);
   }
+}
+
+// The second pass as planned by the binning's scan: block b works
+// src[plan[b].y .. plan[b].z) of range plan[b].x (a range gets blocks by
+// its size, so keys crowded into one range still spread over the card);
+// a block with an empty share returns at once.
+__global__ void partition_bins_kernel(const unsigned* __restrict__ src,
+                                      const int4* __restrict__ plan, int shift, int n_digits,
+                                      int* __restrict__ cursor, unsigned* __restrict__ dst) {
+  __shared__ PartSmem sm;
+  const int4 p = plan[blockIdx.x];
+  if (p.y >= p.z) return;
+  partition_share(sm, src, p.y, p.z, p.x, shift, n_digits, cursor, dst);
+}
+
+// The exclusive prefix of v over the block (at most 1024 threads), and
+// the block's total in *total; every thread must call it.
+__device__ int block_exclusive_scan(int v, int* total) {
+  __shared__ int warp_run[33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+    if (lane >= d) inc += o;
+  }
+  __syncthreads();  // a previous call's readers are done with warp_run
+  if (lane == 31) warp_run[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {  // the warps' exclusive prefix
+    const int w = lane < (int)(blockDim.x >> 5) ? warp_run[lane] : 0;
+    int iw = w;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xFFFFFFFFu, iw, d);
+      if (lane >= d) iw += o;
+    }
+    warp_run[lane] = iw - w;
+    if (lane == 31) warp_run[32] = iw;
+  }
+  __syncthreads();
+  *total = warp_run[32];
+  return warp_run[warp] + inc - v;
+}
+
+__device__ __forceinline__ int slices_of(int count, int chunk) {
+  return count > 0 ? (count - 1) / chunk + 1 : 0;
+}
+
+// The binning's scan, one block, each thread a contiguous run of cells:
+// offsets[c] = the sum of counts[i < c] (offsets[n_cells] the total);
+// the first pass's cursors cursor_a[c >> digits_b] = offsets[c] at each
+// range's first cell (a range is 2^digits_b cells); for a second pass
+// (digits_b > 0) its cursors cursor_b[c] = offsets[c] and its plan: each
+// range gets one block per `share` keys, share being the total over
+// `parts` rounded up to a tile, and block i works plan[i] = (range,
+// first key, end), zeros past the last (the sum of ceil(size / share)
+// is at most n_ranges + parts = n_plan); and for chunk > 0, each cell's
+// slices of at most chunk keys (K5's apply), first[c] = the sum of
+// ceil(counts[i] / chunk) over i < c (first[n_cells] the total).
+__global__ void bin_scan_kernel(const int* __restrict__ counts, int n_cells, int digits_b,
+                                int parts, int chunk, int* __restrict__ offsets,
+                                int* __restrict__ cursor_a, int* __restrict__ cursor_b,
+                                int4* __restrict__ plan, int n_plan, int* __restrict__ first) {
+  __shared__ int range_start[(1 << MAX_DIGITS_LOG2) + 1];
+  const int per = (n_cells + blockDim.x - 1) / blockDim.x;
+  const int c0 = min(n_cells, (int)threadIdx.x * per), c1 = min(n_cells, c0 + per);
+  int sum = 0, slices = 0;
+#pragma unroll 8
+  for (int c = c0; c < c1; ++c) {
+    const int x = counts[c];
+    sum += x;
+    if (chunk > 0) slices += slices_of(x, chunk);
+  }
+  int total, n_slices;
+  int run = block_exclusive_scan(sum, &total);
+  int slice = block_exclusive_scan(slices, &n_slices);
+  const int mask = (1 << digits_b) - 1;
+  for (int c = c0; c < c1; ++c) {
+    const int x = counts[c];
+    offsets[c] = run;
+    if ((c & mask) == 0) {
+      cursor_a[c >> digits_b] = run;
+      range_start[c >> digits_b] = run;
+    }
+    if (digits_b > 0) cursor_b[c] = run;
+    if (chunk > 0) {
+      first[c] = slice;
+      slice += slices_of(x, chunk);
+    }
+    run += x;
+  }
+  const int n_ranges = n_cells >> digits_b;
+  if (threadIdx.x == 0) {
+    offsets[n_cells] = total;
+    if (chunk > 0) first[n_cells] = n_slices;
+    range_start[n_ranges] = total;
+  }
+  if (digits_b == 0) return;  // uniform over the block
+  __syncthreads();
+  const int share = (int)((((int64_t)total + parts - 1) / parts + PART_TILE - 1) / PART_TILE *
+                          PART_TILE);
+  int lo = 0, hi = 0, blocks = 0;
+  if ((int)threadIdx.x < n_ranges) {
+    lo = range_start[threadIdx.x];
+    hi = range_start[threadIdx.x + 1];
+    blocks = hi > lo ? (hi - lo - 1) / share + 1 : 0;
+  }
+  int used;
+  const int b0 = block_exclusive_scan(blocks, &used);
+  for (int j = 0; j < blocks; ++j) {
+    const int start = lo + j * share;
+    const int end = (int)min((int64_t)hi, (int64_t)start + share);
+    plan[b0 + j] = make_int4((int)threadIdx.x, start, end, 0);
+  }
+  for (int i = used + threadIdx.x; i < n_plan; i += blockDim.x) plan[i] = make_int4(0, 0, 0, 0);
 }
 
 // words[b >> 5] |= 1 << (b & 31) for the block's share of binned[start ..
@@ -402,19 +514,47 @@ extern "C" int ntsynt_bf_partition_keys(const void* canon, const void* valid, in
   return (int)cudaGetLastError();
 }
 
-// Step (2), second pass: range r of src is src[ranges[r * stride] ..
-// ranges[(r + 1) * stride]); its value v goes to digit v >> shift, at
-// cursor[r * 2^digits_log2 + digit]++ in dst, as v mod 2^shift.
-extern "C" int ntsynt_bf_partition_bins(const void* src, const void* ranges, int n_ranges,
-                                        int stride, int digits_log2, int shift, void* cursor,
-                                        void* dst, void* stream) {
-  if (n_ranges <= 0 || stride <= 0 || digits_log2 < 0 || digits_log2 > MAX_DIGITS_LOG2 ||
-      shift < 0 || shift + digits_log2 > 32)
+// The second pass's plan: its length for 2^digits_a ranges, one block
+// a range plus `parts` blocks shared out by size, parts being 4 an SM
+// (as the first pass's grid) rounded up to a multiple of the ranges.
+extern "C" int ntsynt_bf_plan_size(int n_ranges) {
+  if (n_ranges <= 0) return 0;
+  const int parts = (4 * sm_count() + n_ranges - 1) / n_ranges * n_ranges;
+  return n_ranges + parts;
+}
+
+// Between steps (1) and (2), one block (bin_scan_kernel): from counts
+// [n_cells] int, offsets [n_cells + 1] and the first pass's cursor_a
+// [n_cells >> digits_b]; when digits_b > 0, the second pass's cursor_b
+// [n_cells] and plan [n_plan] int4 (n_plan from ntsynt_bf_plan_size);
+// when chunk > 0, first [n_cells + 1]: each cell's slices of at most
+// chunk keys. All int, on the stream.
+extern "C" int ntsynt_bf_bin_scan(const void* counts, int n_cells, int digits_b, int chunk,
+                                  void* offsets, void* cursor_a, void* cursor_b, void* plan,
+                                  int n_plan, void* first, void* stream) {
+  const int n_ranges = digits_b >= 0 && digits_b <= MAX_DIGITS_LOG2 ? n_cells >> digits_b : 0;
+  if (n_cells <= 0 || n_cells > (1 << MAX_CELLS_LOG2) || n_ranges <= 0 ||
+      n_ranges << digits_b != n_cells || n_ranges > (1 << MAX_DIGITS_LOG2) || chunk < 0 ||
+      (digits_b > 0 && n_plan <= n_ranges))
     return (int)cudaErrorInvalidValue;
-  const int target = 4 * sm_count();
-  const int k = (target + n_ranges - 1) / n_ranges;
-  partition_bins_kernel<<<(unsigned)n_ranges * k, PART_THREADS, 0, (cudaStream_t)stream>>>(
-      (const unsigned*)src, (const int*)ranges, stride, k, shift, 1 << digits_log2, (int*)cursor,
+  bin_scan_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)counts, n_cells, digits_b, n_plan - n_ranges, chunk, (int*)offsets,
+      (int*)cursor_a, (int*)cursor_b, (int4*)plan, n_plan, (int*)first);
+  return (int)cudaGetLastError();
+}
+
+// Step (2), second pass: block i takes src[plan[i].y .. plan[i].z) of
+// range plan[i].x (plan [n_plan] int4 from the scan); its value v goes to
+// digit v >> shift, at cursor[range * 2^digits_log2 + digit]++ in dst, as
+// v mod 2^shift.
+extern "C" int ntsynt_bf_partition_bins(const void* src, const void* plan, int n_plan,
+                                        int digits_log2, int shift, void* cursor, void* dst,
+                                        void* stream) {
+  if (n_plan <= 0 || digits_log2 < 0 || digits_log2 > MAX_DIGITS_LOG2 || shift < 0 ||
+      shift + digits_log2 > 32)
+    return (int)cudaErrorInvalidValue;
+  partition_bins_kernel<<<(unsigned)n_plan, PART_THREADS, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)src, (const int4*)plan, shift, 1 << digits_log2, (int*)cursor,
       (unsigned*)dst);
   return (int)cudaGetLastError();
 }

@@ -20,146 +20,177 @@
 // hits (and, in cascade mode, a read of the same word of prev), at
 // 3.35 TB/s.
 //
-// Design: three launches and one prefix sum.
-//   (1) count: each valid key adds one to its cell's count (global
-//       atomicAdd; a cell is 2^cell_log2 words);
-//   (2) the wrapper turns the counts into offsets (torch.cumsum);
-//   (3) scatter: each valid key takes a slot of its cell (atomicAdd on
-//       the cell's cursor) and writes its bit index within the cell;
-//   (4) sweep: one block per cell that holds keys loads the cell's words
-//       (and in cascade mode prev's) into dynamic shared memory with
-//       16-byte loads, applies the cell's keys with shared-memory
-//       atomicOr, and writes the cell back. A cell of 2^14 words is
-//       64 KiB, so the cascade's two cells (128 KiB) fit one block's
-//       227 KB; both need cudaFuncSetAttribute above 48 KB. Cells that
-//       no key hits are neither read nor written. The order of keys in a
-//       cell is not fixed, and the result does not depend on it; there
-//       is no per-cell capacity, so nothing falls back.
+// Design. A cell is 2^cell_log2 words (2^14: 64 KiB, so new's and prev's
+// cells fit one block). The keys are binned by cell with K4's binning
+// (csrc/bf_insert.cu): a shared-memory histogram count, a one-block scan
+// (offsets, cursors, the second pass's plan and this apply's slices),
+// then one or two partition passes that sort tiles by digit in shared
+// memory and write each digit's run coalesced, with one global atomic
+// per digit and tile and none per key; the second pass gives each
+// first-pass range blocks by its size, so keys crowded into one range
+// still spread over the card. Then the apply: one block per cell loads
+// the cell's words (and prev's) into shared memory with 16-byte loads,
+// ORs its keys in with shared-memory atomicOr, and stores the cell back.
+// Cells that no key hits are neither read nor written.
+//
+// Hot cells. A cell with more keys than `chunk` (the wrapper's fair share
+// of the segment per block the card holds at once) is split into slices
+// of at most `chunk` keys, one block each: a slice ORs its keys into
+// zeroed shared memory and merges each non-zero word into the filter with
+// one global atomicOr (a coalesced reduction). A cell of one slice loads,
+// ORs and stores its words alone. The slices of every cell are numbered
+// by `first` (an exclusive prefix of ceil(count / chunk), from the
+// binning's scan on the stream), so no host sync sizes the grid: it
+// has n_cells + n / chunk blocks at most, and surplus blocks return at
+// once. There is no per-cell capacity, so nothing falls back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int SWEEP_THREADS = 512;
+constexpr int APPLY_BATCH = 8;       // loads in flight per thread
+constexpr int MAX_CELL_LOG2 = 14;    // new's and prev's 64 KiB in one block
+constexpr unsigned NONE = 0xFFFFFFFFu;
 
-__global__ void sweep_count_kernel(const long long* __restrict__ canon,
-                                   const uint8_t* __restrict__ valid, int64_t n,
-                                   unsigned bit_mask, int cell_shift,
-                                   int* __restrict__ counts) {
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (!valid[i]) continue;
-    unsigned bit = (unsigned)canon[i] & bit_mask;
-    atomicAdd(counts + (bit >> cell_shift), 1);
-  }
-}
-
-__global__ void sweep_scatter_kernel(const long long* __restrict__ canon,
-                                     const uint8_t* __restrict__ valid, int64_t n,
-                                     unsigned bit_mask, int cell_shift,
-                                     int* __restrict__ cursor, unsigned* __restrict__ binned) {
-  const unsigned in_cell = (1u << cell_shift) - 1u;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (!valid[i]) continue;
-    unsigned bit = (unsigned)canon[i] & bit_mask;
-    int slot = atomicAdd(cursor + (bit >> cell_shift), 1);
-    binned[slot] = bit & in_cell;
+// dst[i] = the i-th 16 bytes at g (zeros for g == nullptr), APPLY_BATCH
+// 16-byte loads in flight per thread
+__device__ __forceinline__ void load_cell(uint4* dst, const uint4* g, int n4) {
+  for (int i0 = threadIdx.x; i0 < n4; i0 += blockDim.x * APPLY_BATCH) {
+    uint4 v[APPLY_BATCH];
+#pragma unroll
+    for (int u = 0; u < APPLY_BATCH; ++u) {
+      const int i = i0 + u * blockDim.x;
+      v[u] = make_uint4(0, 0, 0, 0);
+      if (g != nullptr && i < n4) v[u] = g[i];
+    }
+#pragma unroll
+    for (int u = 0; u < APPLY_BATCH; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n4) dst[i] = v[u];
+    }
   }
 }
 
 template <bool CASCADE>
 __global__ void sweep_apply_kernel(unsigned* __restrict__ words, const unsigned* __restrict__ prev,
                                    const unsigned* __restrict__ binned,
-                                   const int* __restrict__ offsets, int cell_words) {
+                                   const int* __restrict__ offsets, const int* __restrict__ first,
+                                   int n_cells, int chunk, int cell_log2) {
   extern __shared__ uint4 smem4[];
-  const int cell = blockIdx.x;
-  const int start = offsets[cell];
-  const int end = offsets[cell + 1];
-  if (start == end) return;
-  unsigned* s_new = reinterpret_cast<unsigned*>(smem4);
-  unsigned* s_prev = s_new + cell_words;
+  const int item = blockIdx.x;  // one slice of one cell
+  // the cell c with first[c] <= item < first[c + 1]: c = item while no
+  // cell before it is split or empty (a uniform segment), else a search
+  int c = min(item, n_cells - 1);
+  const int slices = first[n_cells], f0 = first[c], f1 = first[c + 1];
+  if (item >= slices) return;
+  if (f0 > item || item >= f1) {
+    c = 0;
+    for (int hi = n_cells - 1; c < hi;) {
+      const int mid = (c + hi + 1) >> 1;
+      if (first[mid] <= item) c = mid;
+      else hi = mid - 1;
+    }
+  }
+  const bool split = first[c + 1] - first[c] > 1;
+  const int start = offsets[c] + (item - first[c]) * chunk;
+  const int end = min(offsets[c + 1], start + chunk);
+
+  const int cell_words = 1 << cell_log2;
   const int n4 = cell_words / 4;
-  uint4* g_new = reinterpret_cast<uint4*>(words + (int64_t)cell * cell_words);
-  const uint4* g_prev =
-      CASCADE ? reinterpret_cast<const uint4*>(prev + (int64_t)cell * cell_words) : nullptr;
-  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-    smem4[i] = g_new[i];
-    if (CASCADE) smem4[n4 + i] = g_prev[i];
+  unsigned* s_new = reinterpret_cast<unsigned*>(smem4);
+  const unsigned* s_prev = s_new + cell_words;
+  unsigned* g_new = words + ((int64_t)c << cell_log2);
+  // the cell's words (zeros for a slice of a split cell), and prev's
+  load_cell(smem4, split ? nullptr : reinterpret_cast<const uint4*>(g_new), n4);
+  if (CASCADE)
+    load_cell(smem4 + n4, reinterpret_cast<const uint4*>(prev + ((int64_t)c << cell_log2)), n4);
+  __syncthreads();
+  for (int j0 = start + threadIdx.x; j0 < end; j0 += blockDim.x * APPLY_BATCH) {
+    unsigned b[APPLY_BATCH];
+#pragma unroll
+    for (int u = 0; u < APPLY_BATCH; ++u) {
+      const int j = j0 + u * blockDim.x;
+      b[u] = j < end ? __ldcs(binned + j) : NONE;
+    }
+#pragma unroll
+    for (int u = 0; u < APPLY_BATCH; ++u) {
+      if (b[u] == NONE) continue;
+      const unsigned w = b[u] >> 5, m = 1u << (b[u] & 31u);
+      if (!CASCADE || (s_prev[w] & m)) atomicOr(s_new + w, m);
+    }
   }
   __syncthreads();
-  for (int j = start + threadIdx.x; j < end; j += blockDim.x) {
-    unsigned b = binned[j];
-    unsigned w = b >> 5, m = 1u << (b & 31u);
-    if (!CASCADE || (s_prev[w] & m)) atomicOr(s_new + w, m);
+  // store: the whole cell for a cell of one slice, else each non-zero
+  // word merged into the filter with a global atomic
+  if (!split) {
+    uint4* g4 = reinterpret_cast<uint4*>(g_new);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) g4[i] = smem4[i];
+  } else {
+    for (int k = threadIdx.x; k < cell_words; k += blockDim.x)
+      if (s_new[k]) atomicOr(g_new + k, s_new[k]);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n4; i += blockDim.x) g_new[i] = smem4[i];
 }
 
-int grid_for(int64_t n) {
-  int64_t blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > 1048576) blocks = 1048576;  // grid-stride loops cover the rest
-  return (int)blocks;
+size_t apply_smem(bool cascade, int cell_log2) { return (size_t)(cascade ? 8 : 4) << cell_log2; }
+
+// 1024 threads for 128 KiB of shared memory (one block an SM), 512 below
+int apply_threads(bool cascade, int cell_log2) {
+  return apply_smem(cascade, cell_log2) >= (128u << 10) ? 1024 : 512;
+}
+
+template <bool CASCADE>
+cudaError_t set_apply_smem(int cell_log2) {
+  return cudaFuncSetAttribute(sweep_apply_kernel<CASCADE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)apply_smem(CASCADE, cell_log2));
 }
 
 }  // namespace
 
-// Cell of key i: (canon[i] mod 2^bits_log2) >> (cell_log2 + 5); counts
-// has one int per cell and must be zeroed by the caller.
-extern "C" int ntsynt_bf_sweep_count(const void* canon, const void* valid, int64_t n,
-                                     int bits_log2, int cell_log2, void* counts, void* stream) {
-  if (n <= 0) return 0;
-  if (bits_log2 < 16 || bits_log2 > 32 || cell_log2 < 2 || cell_log2 > bits_log2 - 5)
-    return (int)cudaErrorInvalidValue;
-  unsigned bit_mask = bits_log2 == 32 ? 0xFFFFFFFFu : ((1u << bits_log2) - 1u);
-  sweep_count_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      (const long long*)canon, (const uint8_t*)valid, n, bit_mask, cell_log2 + 5, (int*)counts);
-  return (int)cudaGetLastError();
+// The apply's blocks one SM holds at once in insert (cascade == 0) or
+// cascade mode, given its shared memory and threads (at least 1). The
+// wrapper sizes the hot-cell slices by it.
+extern "C" int ntsynt_bf_sweep_blocks_per_sm(int cascade, int cell_log2, int* blocks) {
+  if (cell_log2 < 2 || cell_log2 > MAX_CELL_LOG2) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cascade ? set_apply_smem<true>(cell_log2) : set_apply_smem<false>(cell_log2);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, cascade ? sweep_apply_kernel<true> : sweep_apply_kernel<false>,
+      apply_threads(cascade, cell_log2), apply_smem(cascade, cell_log2));
+  if (e != cudaSuccess) return (int)e;
+  *blocks = per_sm > 0 ? per_sm : 1;
+  return 0;
 }
 
-// cursor: each cell's first slot (the exclusive prefix of the counts);
-// advanced in place. binned gets each valid key's bit within its cell.
-extern "C" int ntsynt_bf_sweep_scatter(const void* canon, const void* valid, int64_t n,
-                                       int bits_log2, int cell_log2, void* cursor, void* binned,
-                                       void* stream) {
-  if (n <= 0) return 0;
-  if (bits_log2 < 16 || bits_log2 > 32 || cell_log2 < 2 || cell_log2 > bits_log2 - 5)
-    return (int)cudaErrorInvalidValue;
-  unsigned bit_mask = bits_log2 == 32 ? 0xFFFFFFFFu : ((1u << bits_log2) - 1u);
-  sweep_scatter_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      (const long long*)canon, (const uint8_t*)valid, n, bit_mask, cell_log2 + 5, (int*)cursor,
-      (unsigned*)binned);
-  return (int)cudaGetLastError();
-}
-
-// offsets: [n_cells + 1] int, cell c's keys are binned[offsets[c] ..
-// offsets[c+1]). prev == NULL selects insert mode, else cascade mode.
-// words (and prev) must be 16-byte aligned.
+// The apply. Cell c (2^cell_log2 words) holds the bits within the cell
+// binned[offsets[c] .. offsets[c + 1]) of the n binned keys; its slices
+// are first[c] .. first[c + 1] (first: [n_cells + 1] int, from the
+// binning's scan), each of at most chunk keys, so there are at most
+// n_cells + n / chunk. prev == NULL selects insert mode, else cascade
+// mode. words (and prev) must be 16-byte aligned.
 extern "C" int ntsynt_bf_sweep_apply(void* words, const void* prev, const void* binned,
-                                     const void* offsets, int n_cells, int cell_log2,
-                                     void* stream) {
-  if (n_cells <= 0) return 0;
-  if (cell_log2 < 2 || cell_log2 > 14) return (int)cudaErrorInvalidValue;
-  const int cell_words = 1 << cell_log2;
+                                     const void* offsets, const void* first, int64_t n,
+                                     int n_cells, int chunk, int cell_log2, void* stream) {
+  if (n <= 0 || n_cells <= 0) return 0;
+  if (cell_log2 < 2 || cell_log2 > MAX_CELL_LOG2 || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t max_slices = n_cells + n / chunk;
+  if (max_slices >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const bool cascade = prev != nullptr;
+  cudaError_t e = cascade ? set_apply_smem<true>(cell_log2) : set_apply_smem<false>(cell_log2);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = apply_threads(cascade, cell_log2);
+  const size_t smem = apply_smem(cascade, cell_log2);
   cudaStream_t s = (cudaStream_t)stream;
-  if (prev == nullptr) {
-    size_t smem = (size_t)cell_words * 4;
-    cudaError_t e = cudaFuncSetAttribute(sweep_apply_kernel<false>,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    sweep_apply_kernel<false><<<n_cells, SWEEP_THREADS, smem, s>>>(
-        (unsigned*)words, nullptr, (const unsigned*)binned, (const int*)offsets, cell_words);
-  } else {
-    size_t smem = (size_t)cell_words * 8;
-    cudaError_t e = cudaFuncSetAttribute(sweep_apply_kernel<true>,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    sweep_apply_kernel<true><<<n_cells, SWEEP_THREADS, smem, s>>>(
+  if (cascade)
+    sweep_apply_kernel<true><<<(unsigned)max_slices, threads, smem, s>>>(
         (unsigned*)words, (const unsigned*)prev, (const unsigned*)binned, (const int*)offsets,
-        cell_words);
-  }
+        (const int*)first, n_cells, chunk, cell_log2);
+  else
+    sweep_apply_kernel<false><<<(unsigned)max_slices, threads, smem, s>>>(
+        (unsigned*)words, nullptr, (const unsigned*)binned, (const int*)offsets,
+        (const int*)first, n_cells, chunk, cell_log2);
   return (int)cudaGetLastError();
 }

@@ -62,17 +62,21 @@ _SIGNATURES = {
     # canon, valid, n, bits_log2, digits_log2, shift, cursor, dst, stream
     "ntsynt_bf_partition_keys": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
                                  _P],
-    # src, ranges, n_ranges, stride, digits_log2, shift, cursor, dst, stream
-    "ntsynt_bf_partition_bins": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 _P, _P, _P],
+    # n_ranges -> n_plan
+    "ntsynt_bf_plan_size": [ctypes.c_int],
+    # counts, n_cells, digits_b, chunk, offsets, cursor_a, cursor_b, plan, n_plan, first,
+    # stream
+    "ntsynt_bf_bin_scan": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                           ctypes.c_int, _P, _P],
+    # src, plan, n_plan, digits_log2, shift, cursor, dst, stream
+    "ntsynt_bf_partition_bins": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
     # words, binned, offsets, bits_log2, cell_log2, stream
     "ntsynt_bf_apply": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
-    # canon, valid, n, bits_log2, cell_log2, counts, stream
-    "ntsynt_bf_sweep_count": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P],
-    # canon, valid, n, bits_log2, cell_log2, cursor, binned, stream
-    "ntsynt_bf_sweep_scatter": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, _P],
-    # words, prev (NULL: insert), binned, offsets, n_cells, cell_log2, stream
-    "ntsynt_bf_sweep_apply": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    # cascade, cell_log2, blocks (out)
+    "ntsynt_bf_sweep_blocks_per_sm": [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    # words, prev (NULL: insert), binned, offsets, first, n, n_cells, chunk, cell_log2, stream
+    "ntsynt_bf_sweep_apply": [_P, _P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              _P],
 }
 
 

@@ -5,22 +5,27 @@ probe + insert (src/ntsynt_make_common_bf.cpp:140-160: a k-mer goes into
 the next level only if the previous level holds it), for filters of at
 most 2^32 bits, whose bit index fits 32 bits.
 
-The keys are binned by filter cell (``CELL_LOG2`` words) with a count,
-a prefix sum and a scatter, and one CUDA block per cell applies its keys
-in shared memory (csrc/bf_sweep.cu). The JAX package's sort, dedupe and
-one-hot MXU formulation (ntsynt_tpu/ops/bf_sweep.py) and its overflow
-fallback to the scatter path have no counterpart: the CUDA kernel has no
-per-cell capacity.
+The keys are binned by filter cell (``CELL_LOG2`` words) with K4's
+binning (``bloom.bin_keys``: count, one-block scan, partition passes, no
+global atomic per key), and one CUDA block per cell ORs its keys in
+shared memory (csrc/bf_sweep.cu). A cell with more keys than a block's
+fair share of the segment is split over several blocks, its slices
+numbered by the binning's scan on the card (``split_chunk`` sizes them).
+The JAX package's sort, dedupe and one-hot MXU formulation
+(ntsynt_tpu/ops/bf_sweep.py) and its overflow fallback to the scatter
+path have no counterpart: the CUDA kernel has no per-cell capacity.
 
 Off unless ``NTSYNT_BF_SWEEP`` is set, read as the JAX package reads it
 (``mode``), so one environment drives both packages.
 """
 
+import ctypes
+import functools
 import os
 
 import torch
 
-from . import _kernels
+from . import _kernels, bloom
 from .bloom import _as_int32_bits
 
 CELL_LOG2 = 14  # words per cell: 64 KiB, so prev's and new's cells fit one block
@@ -54,6 +59,13 @@ def geometry(bits_log2: int):
     return n_words, cell_log2, n_words >> cell_log2
 
 
+def split_chunk(n: int, cell_words: int, units: int) -> int:
+    """Keys per slice of a hot cell: n keys' fair share over the blocks
+    the card holds at once (units), and never below the cell's words,
+    which a split slice zeroes and merges."""
+    return max(-(-n // max(units, 1)), cell_words)
+
+
 def sweep_plain(words, canon, valid, bits_log2: int, prev=None) -> torch.Tensor:
     """Plain PyTorch K5, in place on words: OR in the bit of every valid
     key (whose bit prev holds, when prev is given). Distinct bits of one
@@ -81,40 +93,38 @@ def _check(words, canon, valid, bits_log2: int, prev=None) -> None:
         raise ValueError("bf_sweep: one segment holds fewer than 2^31 keys")
 
 
-def bin_keys(canon, valid, bits_log2: int):
-    """The kernel's first half on CUDA tensors: (binned int32 [n], offsets
-    int32 [n_cells + 1]), cell c's keys' bits within the cell being
-    binned[offsets[c] .. offsets[c + 1]). Not counted as a launch."""
-    dev = canon.device
+@functools.lru_cache(maxsize=None)
+def units(index: int, cascade: bool, cell_log2: int) -> int:
+    """Apply blocks CUDA device index holds at once: its SMs times the
+    blocks one SM holds given the apply's shared memory and threads
+    (csrc/bf_sweep.cu asks the occupancy API)."""
+    per_sm = ctypes.c_int(0)
+    rc = _kernels.lib().ntsynt_bf_sweep_blocks_per_sm(int(cascade), cell_log2,
+                                                      ctypes.byref(per_sm))
+    _kernels.check("bf_sweep_blocks_per_sm", rc)
+    return per_sm.value * _kernels.sm_count(index)
+
+
+def bin_keys(canon, valid, bits_log2: int, cascade: bool = False):
+    """The kernel's first half on CUDA tensors (canon 16-byte and valid
+    2-byte aligned, 0 < n < 2^31): K4's binning at K5's cells, with the
+    apply's slices for that mode. Returns (binned, offsets, first, chunk)
+    for apply_bins. Not counted as a launch."""
     n = canon.shape[0]
-    _, cell_log2, n_cells = geometry(bits_log2)
-    lib = _kernels.lib()
-    stream = _kernels.stream_ptr(dev)
-    counts = torch.zeros(n_cells, dtype=torch.int32, device=dev)
-    rc = lib.ntsynt_bf_sweep_count(
-        canon.data_ptr(), valid.data_ptr(), n, bits_log2, cell_log2, counts.data_ptr(), stream
-    )
-    _kernels.check("bf_sweep_count", rc)
-    offsets = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev)
-    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
-    cursor = offsets[:-1].clone()
-    binned = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = lib.ntsynt_bf_sweep_scatter(
-        canon.data_ptr(), valid.data_ptr(), n, bits_log2, cell_log2, cursor.data_ptr(),
-        binned.data_ptr(), stream,
-    )
-    _kernels.check("bf_sweep_scatter", rc)
-    return binned, offsets
+    _, cell_log2, _ = geometry(bits_log2)
+    chunk = split_chunk(n, 1 << cell_log2, units(canon.device.index, cascade, cell_log2))
+    return (*bloom.bin_keys(canon, valid, bits_log2, cell_log2, chunk), chunk)
 
 
-def apply_bins(words, binned, offsets, bits_log2: int, prev=None) -> None:
-    """The kernel's second half on CUDA tensors: one block per cell ORs
-    its binned keys into words (those prev holds, when given). Not
-    counted as a launch."""
+def apply_bins(words, binned, offsets, first, chunk: int, bits_log2: int, prev=None) -> None:
+    """The kernel's second half on CUDA tensors: one block per slice of a
+    cell ORs its binned keys into words (those prev holds, when given).
+    Not counted as a launch."""
     _, cell_log2, n_cells = geometry(bits_log2)
     rc = _kernels.lib().ntsynt_bf_sweep_apply(
         words.data_ptr(), None if prev is None else prev.data_ptr(), binned.data_ptr(),
-        offsets.data_ptr(), n_cells, cell_log2, _kernels.stream_ptr(words.device),
+        offsets.data_ptr(), first.data_ptr(), binned.shape[0], n_cells, chunk, cell_log2,
+        _kernels.stream_ptr(words.device),
     )
     _kernels.check("bf_sweep_apply", rc)
 
@@ -129,8 +139,9 @@ def _sweep(words, canon, valid, bits_log2: int, prev=None) -> torch.Tensor:
         raise ValueError("bf_sweep: words and prev must be 16-byte aligned")
     if canon.shape[0] == 0:
         return words
-    binned, offsets = bin_keys(canon, valid, bits_log2)
-    apply_bins(words, binned, offsets, bits_log2, prev)
+    if canon.data_ptr() % 16 or valid.data_ptr() % 2:
+        canon, valid = canon.clone(), valid.clone()  # fresh blocks are aligned
+    apply_bins(words, *bin_keys(canon, valid, bits_log2, prev is not None), bits_log2, prev)
     _kernels.count("bf_sweep", canon.shape[0], bits_log2, "insert" if prev is None else "cascade")
     return words
 

@@ -77,22 +77,24 @@ def insert_words_plain(words, canon, valid, bits_log2: int) -> torch.Tensor:
 
 # K4's geometry (csrc/bf_insert.cu): a cell is one block's shared
 # memory, 2^15 words (2^20 bits, 128 KiB); the keys are partitioned by
-# cell in one pass of at most 2^8 digits, or two. A segment, or a cell,
-# with fewer keys than one per DIRECT_WORDS_PER_KEY words takes global
-# atomics instead of the shared-memory sweep (the same constant as in the
-# source).
+# cell in one pass of at most 2^8 digits, or two, in tiles of
+# PART_TILE keys. A segment, or a cell, with fewer keys than one per
+# DIRECT_WORDS_PER_KEY words takes global atomics instead of the
+# shared-memory sweep (the same constants as in the source).
 CELL_LOG2 = 15
 MAX_DIGITS_LOG2 = 8
 DIRECT_WORDS_PER_KEY = 16
+PART_TILE = 4096
 
 
-def insert_geometry(bits_log2: int):
-    """(cell_log2, digits_a, digits_b) of K4's binned route: 2^cell_log2
-    words per cell (a filter under one cell is one cell), and the cell
-    index split into the first partition pass's top digits_a bits and the
-    second's low digits_b bits (digits_b == 0: one pass)."""
+def insert_geometry(bits_log2: int, cell_log2: int = CELL_LOG2):
+    """(cell_log2, digits_a, digits_b) of the binning: 2^cell_log2 words
+    per cell (K4's by default, K5 passes its own; a filter under one cell
+    is one cell), and the cell index split into the first partition
+    pass's top digits_a bits and the second's low digits_b bits
+    (digits_b == 0: one pass)."""
     words_log2 = bits_log2 - 5
-    cell_log2 = min(CELL_LOG2, words_log2)
+    cell_log2 = min(cell_log2, words_log2)
     cells_log2 = words_log2 - cell_log2
     digits_b = 0 if cells_log2 <= MAX_DIGITS_LOG2 else cells_log2 // 2
     return cell_log2, cells_log2 - digits_b, digits_b
@@ -130,40 +132,106 @@ def insert_direct(words, canon, valid, bits_log2: int) -> None:
     _kernels.check("bf_insert", rc)
 
 
-def bin_keys(canon, valid, bits_log2: int):
-    """Steps 1-2 of K4's binned route on CUDA tensors (canon 16-byte and
-    valid 2-byte aligned, 0 < n < 2^31): (binned int32 [n], offsets int32
-    [n_cells + 1]); cell c's keys' bits within the cell are
-    binned[offsets[c] .. offsets[c + 1]). Not counted as a launch."""
+def bin_scan_plain(counts: torch.Tensor, digits_b: int, n_plan: int, chunk: int = 0):
+    """Plain form of the binning's scan (csrc/bf_insert.cu:bin_scan_kernel)
+    from the cells' counts (int32 [n_cells]): (offsets int32 [n_cells +
+    1], cursor_a int32 [n_cells >> digits_b], cursor_b int32 [n_cells] or
+    None, plan int32 [n_plan, 4] or None, first int32 [n_cells + 1] or
+    None). offsets are the cells' exclusive prefix and the total;
+    cursor_a and cursor_b the partition passes' cursors (each range's,
+    each cell's first key). For a second pass (digits_b > 0) the ranges
+    of 2^digits_b cells get one block per `share` keys, share being the
+    total over parts = n_plan - n_ranges rounded up to a tile, block i
+    working keys plan[i, 1] .. plan[i, 2] of range plan[i, 0] (zeros past
+    the last). For chunk > 0, cell c's slices of at most chunk keys are
+    first[c] .. first[c + 1]."""
+    counts = counts.long()
+    n_cells = counts.shape[0]
+    offsets = torch.zeros(n_cells + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(counts, 0)
+    cursor_a = offsets[:-1:1 << digits_b].int()
+    cursor_b = plan = first = None
+    if digits_b:
+        cursor_b = offsets[:-1].int()
+        bounds = offsets[:: 1 << digits_b]
+        total = int(bounds[-1])
+        parts = n_plan - (bounds.shape[0] - 1)
+        share = (-(-total // parts) + PART_TILE - 1) // PART_TILE * PART_TILE
+        plan = torch.zeros((n_plan, 4), dtype=torch.int32)
+        i = 0
+        for r in range(bounds.shape[0] - 1):
+            for start in range(int(bounds[r]), int(bounds[r + 1]), max(share, 1)):
+                plan[i] = torch.tensor([r, start, min(int(bounds[r + 1]), start + share), 0])
+                i += 1
+    if chunk:
+        first = torch.zeros(n_cells + 1, dtype=torch.int64)
+        first[1:] = torch.cumsum(torch.div(counts + (chunk - 1), chunk, rounding_mode="floor"), 0)
+        first = first.int()
+    return offsets.int(), cursor_a, cursor_b, plan, first
+
+
+def bin_scan(counts: torch.Tensor, digits_b: int, chunk: int = 0):
+    """bin_scan_plain's outputs from CUDA counts, by one one-block launch
+    on the stream (no host sync), with the second pass's plan as long as
+    the card's grid for it (csrc/bf_insert.cu:ntsynt_bf_plan_size). Not
+    counted as a launch."""
+    _kernels.require_cuda("bin_scan", counts)
+    dev = counts.device
+    n_cells = counts.shape[0]
+    n_ranges = n_cells >> digits_b
+    lib = _kernels.lib()
+    n_plan = lib.ntsynt_bf_plan_size(n_ranges) if digits_b else 0
+
+    def buf(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    offsets, cursor_a = buf(n_cells + 1), buf(n_ranges)
+    cursor_b = buf(n_cells) if digits_b else None
+    plan = buf(n_plan, 4) if digits_b else None
+    first = buf(n_cells + 1) if chunk else None
+    rc = lib.ntsynt_bf_bin_scan(
+        counts.data_ptr(), n_cells, digits_b, chunk, offsets.data_ptr(), cursor_a.data_ptr(),
+        None if cursor_b is None else cursor_b.data_ptr(),
+        None if plan is None else plan.data_ptr(), n_plan,
+        None if first is None else first.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.check("bf_bin_scan", rc)
+    return offsets, cursor_a, cursor_b, plan, first
+
+
+def bin_keys(canon, valid, bits_log2: int, cell_log2: int = CELL_LOG2, chunk: int = 0):
+    """Steps 1-2 of the binned route on CUDA tensors (canon 16-byte and
+    valid 2-byte aligned, 0 < n < 2^31), at 2^cell_log2-word cells (K4's
+    by default; K5 bins at its own): the count, the scan and the
+    partition passes. Returns (binned int32 [n], offsets int32 [n_cells +
+    1], first): cell c's keys' bits within the cell are
+    binned[offsets[c] .. offsets[c + 1]), and for chunk > 0 its slices of
+    at most chunk keys are first[c] .. first[c + 1] (else first is None).
+    Not counted as a launch."""
     dev = canon.device
     n = canon.shape[0]
-    cell_log2, digits_a, digits_b = insert_geometry(bits_log2)
-    n_cells = 1 << (digits_a + digits_b)
+    cell_log2, digits_a, digits_b = insert_geometry(bits_log2, cell_log2)
     lib = _kernels.lib()
     stream = _kernels.stream_ptr(dev)
-    counts = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(1 << (digits_a + digits_b), dtype=torch.int32, device=dev)
     rc = lib.ntsynt_bf_cell_count(canon.data_ptr(), valid.data_ptr(), n, bits_log2, cell_log2,
                                   counts.data_ptr(), stream)
     _kernels.check("bf_cell_count", rc)
-    offsets = torch.cumsum(counts, 0, dtype=torch.int32)
-    offsets -= counts
+    offsets, cursor_a, cursor_b, plan, first = bin_scan(counts, digits_b, chunk)
     # the first pass: by the cell's top digits_a bits, at its range's start
-    cursor = offsets[:-1:1 << digits_b].clone()
-    first = torch.empty(n, dtype=torch.int32, device=dev)
+    binned = torch.empty(n, dtype=torch.int32, device=dev)
     rc = lib.ntsynt_bf_partition_keys(canon.data_ptr(), valid.data_ptr(), n, bits_log2,
-                                      digits_a, bits_log2 - digits_a, cursor.data_ptr(),
-                                      first.data_ptr(), stream)
+                                      digits_a, bits_log2 - digits_a, cursor_a.data_ptr(),
+                                      binned.data_ptr(), stream)
     _kernels.check("bf_partition_keys", rc)
     if digits_b == 0:
-        return first, offsets
-    # the second: within each range, by the low digits_b bits
-    cursor = offsets[:-1].clone()
-    binned = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = lib.ntsynt_bf_partition_bins(first.data_ptr(), offsets.data_ptr(), 1 << digits_a,
-                                      1 << digits_b, digits_b, cell_log2 + 5, cursor.data_ptr(),
-                                      binned.data_ptr(), stream)
+        return binned, offsets, first
+    # the second: within each range, by the low digits_b bits, as planned
+    src, binned = binned, torch.empty(n, dtype=torch.int32, device=dev)
+    rc = lib.ntsynt_bf_partition_bins(src.data_ptr(), plan.data_ptr(), plan.shape[0], digits_b,
+                                      cell_log2 + 5, cursor_b.data_ptr(), binned.data_ptr(),
+                                      stream)
     _kernels.check("bf_partition_bins", rc)
-    return binned, offsets
+    return binned, offsets, first
 
 
 def apply_bins(words, binned, offsets, bits_log2: int) -> None:
@@ -184,7 +252,7 @@ def insert_binned(words, canon, valid, bits_log2: int) -> None:
         raise ValueError("insert_binned: words must be 16-byte aligned")
     if canon.data_ptr() % 16 or valid.data_ptr() % 2:
         canon, valid = canon.clone(), valid.clone()  # fresh blocks are aligned
-    binned, offsets = bin_keys(canon, valid, bits_log2)
+    binned, offsets, _ = bin_keys(canon, valid, bits_log2)
     apply_bins(words, binned, offsets, bits_log2)
 
 
