@@ -6,7 +6,9 @@
 Phases, each printing one JSON line with its elapsed seconds:
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: one nvcc call compiles ntsynt_tpu_torch/csrc/*.cu (cached in
-     ntsynt_tpu_torch/_build/ by source hash);
+     ntsynt_tpu_torch/_build/ by source hash); host_build: g++ builds
+     the host library (csrc/host/*.cpp: the OpenMP FASTA packer and the
+     chain walker) there too, and the OpenMP runtime it runs on is named;
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      same inputs (made from a seed), at the shapes the main path gives
      it and at the edges of K1's, K2's, K3's and K4's designs; outputs
@@ -17,13 +19,14 @@ Phases, each printing one JSON line with its elapsed seconds:
      the repeat walk's shape, K4 a 2^34-bit filter and its bin/apply
      split, K5 its cascade, its two single-cell rows, its bin/apply split
      and its edge cases (k5_edges); K2 also the one PyTorch expression
-     that computes it (library_ms, k2_library);
+     that computes it (library_ms, k2_library), at w=1000 and w=10,000;
   4. main path: two 100 Mbp genomes (0.1% SNPs, one 50 kb inversion) are
      generated into a temporary directory and run through the port's CLI
      (``python -m ntsynt_tpu_torch a.fa b.fa -d 1``) on the card; the
      blocks TSV must hold the inversion as a '-' block and every kernel
      of the path must have launched; prints each launch's sizes and the
-     run's peak device memory;
+     run's peak device memory; the FASTA reads and the chain walk run
+     natively (the host library);
   5. winmin_refine: the window-argmin kernel against its plain version at
      the key counts the main path's refinement rounds gave it, and the
      compaction kernel on its output there, each with its device time and
@@ -38,7 +41,18 @@ Phases, each printing one JSON line with its elapsed seconds:
      gives the cascade's words;
   9. card vs CPU: a 200 kb two-genome scenario through the CLI on
      --device cuda and --device cpu, without and with each --filter
-     mode; every artifact must be byte-identical.
+     mode; every artifact must be byte-identical;
+ 10. host_native: genome A, and a copy split into 12 contigs, read
+     natively at one thread and at os.cpu_count() threads and by NumPy
+     (native=False); every field and the .fai must be identical; each
+     read's seconds;
+ 11. walk: the main path's CLI run again with NTSYNT_NO_NATIVE_WALK=1
+     must write the same blocks TSV; both runs' synteny and read
+     seconds, and the walk alone (native and NumPy) on chains of the
+     main path's and of a gigabase genome's size;
+ 12. sidecars: stats, sort_blocks, the gggenomes files and the
+     chromosome painting on the main path's blocks TSV and .fai files,
+     with their seconds, and the plots where matplotlib is installed.
 Each path's kernel counts are set to 0 just before it and read just
 after. Then the kernel table as one JSON line, nvidia-smi's "name, power
 limit" line, and last {"ok": true, "device": {...}}. Any failed check
@@ -49,6 +63,7 @@ package beside it, it exits non-zero before printing any result.
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -209,20 +224,21 @@ def run_cli(workdir: str, args) -> str:
 
 
 @contextlib.contextmanager
-def sweep_env(value):
-    """NTSYNT_BF_SWEEP set to value (None: unset) inside the block."""
-    old = os.environ.get("NTSYNT_BF_SWEEP")
+def env_set(name: str, value):
+    """Environment variable name set to value (None: unset) inside the
+    block."""
+    old = os.environ.get(name)
     if value is None:
-        os.environ.pop("NTSYNT_BF_SWEEP", None)
+        os.environ.pop(name, None)
     else:
-        os.environ["NTSYNT_BF_SWEEP"] = value
+        os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("NTSYNT_BF_SWEEP", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["NTSYNT_BF_SWEEP"] = old
+            os.environ[name] = old
 
 
 def drive_path(torch, name: str, fn):
@@ -274,12 +290,12 @@ def k2_library(torch, keys, w: int):
     return rel + torch.arange(rel.shape[0], device=keys.device), minv ^ sign
 
 
-def time_winmin(winmin, keys, w: int, reps: int = 10, library_keys: int | None = None) -> dict:
+def time_winmin(winmin, keys, w: int, reps: int = 10) -> dict:
     """K2 vs its plain version on keys at window w: check, then time its
     device time (ms, a CUDA graph of launches) and its wrapper's time
     (wrapper_ms, a loop of calls); and the library expression
-    (k2_library) on the first library_keys keys (all by default), with
-    whether it equals the plain version bit for bit."""
+    (k2_library) on the same keys, which must equal the plain version
+    bit for bit."""
     import torch
 
     from ntsynt_tpu_torch.ops import _kernels
@@ -289,19 +305,17 @@ def time_winmin(winmin, keys, w: int, reps: int = 10, library_keys: int | None =
     err = require_equal(f"K2 w={w}", [(arg, parg), (minv, pminv)])
     del arg, minv, parg, pminv
     m = keys.shape[0]
-    lib_keys = keys[: library_keys or m]
-    larg, lminv = k2_library(torch, lib_keys, w)
-    parg, pminv = winmin.window_argmin_plain(lib_keys, w)
-    library_equal = bool(torch.equal(larg, parg) and torch.equal(lminv, pminv))
+    larg, lminv = k2_library(torch, keys, w)
+    parg, pminv = winmin.window_argmin_plain(keys, w)
+    if not (torch.equal(larg, parg) and torch.equal(lminv, pminv)):
+        raise AssertionError(f"k2_library differs from window_argmin_plain at w={w}")
     del larg, lminv, parg, pminv
     return dict(
         max_abs_err=err,
         ms=device_ms(lambda: winmin.window_argmin(keys, w), reps),
         wrapper_ms=cuda_time_ms(lambda: winmin.window_argmin(keys, w), reps),
         plain_ms=cuda_time_ms(lambda: winmin.window_argmin_plain(keys, w), 1),
-        library_ms=cuda_time_ms(lambda: k2_library(torch, lib_keys, w), 1),
-        library_shape=f"{lib_keys.shape[0]} keys, w={w}",
-        library_equals_plain=library_equal,
+        library_ms=cuda_time_ms(lambda: k2_library(torch, keys, w), 1),
         bound_ms=(8 * m + 16 * (m - w + 1)) / HBM_BYTES_PER_S * 1e3,
         plan=list(winmin.winmin_plan(m, w, _kernels.sm_count(keys.device.index))),
         shape=f"{m} keys, w={w}",
@@ -498,8 +512,7 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     # the refinement rounds' shapes are timed after the main path has
     # recorded them (phase_winmin_refine)
     k2 = time_winmin(winmin, key, 1000)
-    # the library expression reads w keys a window: 2^22 keys at w=10,000
-    k2_stream = time_winmin(winmin, key, 10_000, reps=5, library_keys=1 << 22)
+    k2_stream = time_winmin(winmin, key, 10_000, reps=5)
     arg_main, minv_main = winmin.window_argmin(key, 1000)
     k2["edge_cases"] = k2_edges(torch, dev, winmin, rng)
     kernels["winmin"].update(k2, by_w={"1000": k2, "10000": k2_stream})
@@ -780,12 +793,12 @@ def phase_sweep_path(torch, dev, tmp: str, fa: str, fb: str, main_out: str, info
     from ntsynt_tpu_torch.ops import bf_build
 
     genomes = [read_fasta(fa), read_fasta(fb)]
-    with sweep_env("1"):
+    with env_set("NTSYNT_BF_SWEEP", "1"):
         t0 = time.perf_counter()
         swept, info["build_launches"], _ = drive_path(
             torch, "sweep_build", lambda: bf_build.build_common_bf(genomes, 24, device=dev))
         info["build_common_bf_sweep_s"] = round(time.perf_counter() - t0, 3)
-    with sweep_env(None):
+    with env_set("NTSYNT_BF_SWEEP", None):
         t0 = time.perf_counter()
         cascade = bf_build.build_common_bf(genomes, 24, device=dev)
         torch.cuda.synchronize()
@@ -799,7 +812,7 @@ def phase_sweep_path(torch, dev, tmp: str, fa: str, fb: str, main_out: str, info
     info["popcount"] = swept.popcount()
     del genomes, swept
     torch.cuda.empty_cache()
-    with sweep_env("1"):
+    with env_set("NTSYNT_BF_SWEEP", "1"):
         out = run_cli_path(torch, tmp, "sweep", "sweep", [fa, fb], info)
     if info["launches"]["bf_insert"] != 0:
         raise AssertionError("the sweep CLI run launched the atomic-OR insert")
@@ -924,6 +937,156 @@ def phase_card_vs_cpu(tmp: str, info: dict) -> None:
         )
 
 
+GENOME_FIELDS = ("lengths", "offsets", "codes", "raw", "fai_offsets", "fai_linebases",
+                 "fai_linewidth")
+
+
+def same_genome(a, b, tmp: str) -> bool:
+    """Every field of two PackedGenomes and their .fai bytes are equal."""
+    from ntsynt_tpu_torch.io.fasta import write_fai
+
+    if a.contig_names != b.contig_names:
+        return False
+    for f in GENOME_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+            return False
+    fais = [write_fai(g, os.path.join(tmp, f"same_genome_{i}.fai")) for i, g in enumerate((a, b))]
+    same = open(fais[0], "rb").read() == open(fais[1], "rb").read()
+    for f in fais:
+        os.remove(f)
+    return same
+
+
+def phase_host_native(tmp: str, fa: str, info: dict) -> None:
+    """Genome A (one 100 Mbp contig) and a copy split into 12 contigs, as
+    a chromosome set is: the native reader at one thread and at
+    os.cpu_count() threads against the NumPy reader. Pass 2 of the native
+    parse is parallel over contigs, so the one-contig file shows the
+    native-vs-NumPy gap and the 12-contig one the threads."""
+    from ntsynt_tpu_torch.io import fasta as fio
+
+    rng = np.random.default_rng(SEED + 2)
+    threads = os.cpu_count() or 1
+    info["cpu_count"] = threads
+    t0 = time.perf_counter()
+    ref = fio.read_fasta(fa, native=False)
+    numpy_s = time.perf_counter() - t0
+    cuts = np.sort(rng.choice(ref.total_bases - 1, 11, replace=False) + 1)
+    pieces = np.split(ref.codes, cuts)
+    fa12 = write_fasta(os.path.join(tmp, "genomeA12.fa"),
+                       [(f"chr{i + 1}", c) for i, c in enumerate(pieces)])
+    info["contig_lengths_12"] = [len(c) for c in pieces]
+    del pieces
+    for label, path in (("one_contig", fa), ("12_contigs", fa12)):
+        row = {}
+        if label != "one_contig":
+            t0 = time.perf_counter()
+            ref = fio.read_fasta(path, native=False)
+            numpy_s = time.perf_counter() - t0
+        row["numpy_s"] = round(numpy_s, 4)
+        for t in (1, threads):
+            t0 = time.perf_counter()
+            g = fio.read_fasta(path, native=True, threads=t)
+            row[f"native_t{t}_s"] = round(time.perf_counter() - t0, 4)
+            if not same_genome(g, ref, tmp):
+                raise AssertionError(f"host_native {label}: the native read at {t} threads "
+                                     "differs from the NumPy read")
+            del g
+        row["bases"] = ref.total_bases
+        row["identical"] = True
+        info[label] = row
+        del ref
+    os.remove(fa12)
+
+
+def walk_alone(n_nodes: int) -> dict:
+    """MinimizerGraph.linear_paths on one chain of n_nodes, native and
+    with NTSYNT_NO_NATIVE_WALK=1: seconds of each, paths equal."""
+    from ntsynt_tpu_torch.graph.mxgraph import MinimizerGraph
+
+    rng = np.random.default_rng(SEED + 3)
+    chain = rng.permutation(np.arange(1, n_nodes + 1, dtype=np.uint64))
+    g = MinimizerGraph.build([("a", [chain]), ("b", [chain])], {"a": 1, "b": 1})
+    out, paths = {}, {}
+    for label, value in (("native", None), ("numpy", "1")):
+        with env_set("NTSYNT_NO_NATIVE_WALK", value):
+            t0 = time.perf_counter()
+            paths[label] = g.linear_paths()
+            out[f"{label}_s"] = round(time.perf_counter() - t0, 4)
+    if len(paths["native"]) != 1 or not all(
+            np.array_equal(a, b) for a, b in zip(paths["native"], paths["numpy"])):
+        raise AssertionError(f"walk on a {n_nodes}-node chain: native and NumPy paths differ")
+    return out
+
+
+def phase_walk(torch, tmp: str, fa: str, fb: str, main_out: str, main_info: dict,
+               info: dict) -> None:
+    """The main path's CLI run with NTSYNT_NO_NATIVE_WALK=1 (the NumPy
+    pointer-doubling walk) must write the main path's blocks; the walk
+    alone on chains of the main path's graph size and a gigabase
+    genome's."""
+    with env_set("NTSYNT_NO_NATIVE_WALK", "1"):
+        out = run_cli_path(torch, tmp, "no_native_walk", "main", [fa, fb], info)
+    with open(out, "rb") as f1, open(main_out, "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError(
+                "the NTSYNT_NO_NATIVE_WALK run's blocks differ from the main path's")
+    info["blocks_equal_main"] = True
+    keep = ("synteny", "read_fasta:genomeA.fa", "read_fasta:genomeB.fa", "make_common_bf")
+    info["stage_s"] = {
+        "native_walk (main path)": {k: main_info["stages"][k]["s"] for k in keep},
+        "numpy_walk": {k: info["stages"][k]["s"] for k in keep},
+    }
+    # 2L/w minimizers a genome: 2 x 10^5 at 100 Mbp, 2 x 10^6 at 1 Gbp (w=1000)
+    info["walk_alone"] = {f"{n}_nodes": walk_alone(n) for n in (200_000, 2_000_000)}
+
+
+def phase_sidecars(tmp: str, blocks_tsv: str, info: dict) -> None:
+    """The sidecars on the main path's blocks TSV and .fai files."""
+    from ntsynt_tpu_torch.analysis.stats import compute_stats
+    from ntsynt_tpu_torch.viz import formats
+
+    work = os.path.dirname(blocks_tsv)
+    fais = [os.path.join(work, f"{g}.fai") for g in ("genomeA.fa", "genomeB.fa")]
+    out = os.path.join(tmp, "sidecars")
+    os.makedirs(out)
+    seconds = {}  # per step; the phase's own "seconds" is its total
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 4)
+        return result
+
+    stats = timed("compute_stats", compute_stats, blocks_tsv, fais)
+    lines = timed("sort_blocks", formats.sort_blocks, blocks_tsv, ["genomeB.fa", "genomeA.fa"])
+    seq = timed("write_sequence_lengths", formats.write_sequence_lengths, fais,
+                os.path.join(out, "viz"))
+    links = timed("write_links", formats.write_links, blocks_tsv, os.path.join(out, "viz"),
+                  10000, "genomeA.fa")
+    paint = timed("write_chromosome_painting", formats.write_chromosome_painting, blocks_tsv,
+                  "genomeA.fa", os.path.join(out, "painting.tsv"))
+    if stats["Number_blocks"] <= 0 or stats["NG50_length"] <= 0 or not lines:
+        raise AssertionError(f"sidecars: no blocks in the stats or sort_blocks: {stats}")
+    for path in (seq, links, paint):
+        with open(path) as fin:
+            if sum(1 for _ in fin) < 2:
+                raise AssertionError(f"sidecars: {os.path.basename(path)} holds no row")
+    info.update(step_s=seconds, stats=stats, sorted_rows=len(lines))
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        info["plots"] = "not run: matplotlib is not installed"
+        print("sidecars: the plots were not run: matplotlib is not installed", flush=True)
+        return
+    from ntsynt_tpu_torch.viz.plot import painting_plot, ribbon_plot
+
+    pngs = [timed("ribbon_plot", ribbon_plot, seq, links, os.path.join(out, "ribbon.png")),
+            timed("painting_plot", painting_plot, paint, os.path.join(out, "painting.png"))]
+    info["plots"] = {os.path.basename(p): os.path.getsize(p) for p in pngs}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isfile(os.path.join(here, "ntsynt_tpu_torch", "__init__.py")):
@@ -953,6 +1116,13 @@ def main() -> int:
         info.update(_kernels.BUILD_INFO)
         _kernels.lib()
 
+    with phase("host_build", {}) as info:
+        info["library"] = os.path.relpath(_kernels.build_host(), here)
+        info.update(_kernels.HOST_BUILD_INFO)
+        _kernels.host_lib()
+        with open("/proc/self/maps") as fin:
+            info["libgomp"] = sorted(set(re.findall(r"/\S*libgomp\S*", fin.read())))
+
     sources = {"nthash": "nthash.cu", "winmin": "winmin.cu", "compact": "compact.cu",
                "bf_insert": "bf_insert.cu", "bf_sweep": "bf_sweep.cu"}
     replaces = {
@@ -976,8 +1146,8 @@ def main() -> int:
 
     tmp = tempfile.mkdtemp(prefix="ntsynt_smoke_")
     try:
-        with phase("main_path", {}) as info:
-            launches, shapes, fa, fb, main_out = phase_main_path(torch, tmp, info)
+        with phase("main_path", {}) as main_info:
+            launches, shapes, fa, fb, main_out = phase_main_path(torch, tmp, main_info)
         with phase("winmin_refine", {}) as info:
             phase_winmin_refine(torch, dev, shapes, kernels, info)
         with phase("sweep_path", {}) as info:
@@ -992,6 +1162,12 @@ def main() -> int:
                              [fa, fb, "--filter", mode], info)
         with phase("card_vs_cpu", {}) as info:
             phase_card_vs_cpu(tmp, info)
+        with phase("host_native", {}) as info:
+            phase_host_native(tmp, fa, info)
+        with phase("walk", {}) as info:
+            phase_walk(torch, tmp, fa, fb, main_out, main_info, info)
+        with phase("sidecars", {}) as info:
+            phase_sidecars(tmp, main_out, info)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -74,7 +74,7 @@ def build_parser():
     parser.add_argument("-k", help="Minimizer k-mer size [24]", type=int, default=24)
     parser.add_argument("-w", help="Minimizer window size [1000]", type=int, default=1000)
     parser.add_argument(
-        "-t", help="Host threads (accepted for compatibility; the FASTA reader here is NumPy) [12]",
+        "-t", help="Host threads for the native FASTA reader [12]",
         type=int, default=12,
     )
     parser.add_argument("--fpr", help="Bloom filter false positive rate [0.025]", type=float, default=0.025)
@@ -184,6 +184,7 @@ def main(argv=None):
         force=args.force,
         dry_run=args.dry_run,
         device=args.device,
+        threads=args.t,
     )
     out = NtSyntPipeline(cfg).run()
     if out:

@@ -88,6 +88,7 @@ class PipelineConfig:
     bf_artifact: str = "stub"  # "stub" (resume marker; rebuild) | "full" (byte-complete .bf)
     out_dir: str = "."
     device: str = "cuda"
+    threads: int = 0  # host threads for the native FASTA reader (-t)
 
     def resolved_prefix(self) -> str:
         p = self.prefix or f"ntSynt.k{self.k}.w{self.w}"
@@ -115,7 +116,7 @@ class _LazyGenomes:
                     return self._loaded[name]
                 runner, cfg = self._runner, self._runner.cfg
                 with runner.timer.stage(f"read_fasta:{name}"):
-                    g = fio.read_fasta(self._paths[name])
+                    g = fio.read_fasta(self._paths[name], threads=cfg.threads)
                     fio.write_fai(g, os.path.join(cfg.out_dir, f"{g.name}.fai"))
                 self._loaded[name] = g
         return self._loaded[name]

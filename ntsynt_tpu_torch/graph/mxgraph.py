@@ -26,15 +26,32 @@ that order.
 
 Scale note: with default parameters the graph holds ~2·L/w shared
 minimizers (~6M nodes for mammal-scale genomes at w=1000). Build,
-path extraction (pointer doubling, NumPy only: the JAX package's
-native chain walker, csrc/libgraphwalk.so, is not loaded here) and the
-path->block machinery are fully vectorized; tests/test_scale.py stress-runs the graph+blocks
+path extraction (a native sequential walk, or pointer doubling in
+NumPy) and the path->block machinery are fully vectorized;
+tests/test_scale.py stress-runs the graph+blocks
 stage at 6M nodes / 100k paths.
 """
 
 from dataclasses import dataclass, field
+import os
 
 import numpy as np
+
+
+def _walk_lib():
+    """The host library's chain walker (csrc/host/graphwalk.cpp), or None
+    for the NumPy fallback when NTSYNT_NO_NATIVE_WALK is set (tests
+    compare both).
+
+    The sequential walk visits each directed edge once; the vectorized
+    pointer-doubling fallback costs O(2m log L) NumPy passes, about 8x
+    slower (measured for the JAX package) when the graph is a few
+    gigabase-scale chains."""
+    if os.environ.get("NTSYNT_NO_NATIVE_WALK"):
+        return None
+    from ..ops import _kernels
+
+    return _kernels.host_lib()
 
 
 @dataclass
@@ -428,6 +445,30 @@ class MinimizerGraph:
         )
         del w_next, ue_next, cont, fwd_is_uv
         poison = deg[dv] > 2  # chain runs into a branch node
+
+        lib = _walk_lib()
+        if lib is not None:
+            starts_all = np.where(deg[du] == 1)[0].astype(np.int32)
+            out_cap = 2 * m + len(starts_all) + 1
+            out_nodes = np.empty(out_cap, np.int32)
+            out_offsets = np.empty(len(starts_all) + 1, np.int64)
+            nxt_c = np.ascontiguousarray(nxt, np.int32)
+            du_c = np.ascontiguousarray(du, np.int32)
+            dv_c = np.ascontiguousarray(dv, np.int32)
+            poison_c = np.ascontiguousarray(poison, np.uint8)
+            n_chains = lib.graphwalk_chains(
+                nxt_c.ctypes.data, du_c.ctypes.data, dv_c.ctypes.data,
+                poison_c.ctypes.data, starts_all.ctypes.data,
+                len(starts_all), 2 * m,
+                out_nodes.ctypes.data, out_offsets.ctypes.data, out_cap,
+            )
+            if n_chains >= 0:
+                return [
+                    self.node_hash[out_nodes[out_offsets[i] : out_offsets[i + 1]]]
+                    for i in range(n_chains)
+                ]
+            # corrupt/overflow (cannot happen for well-formed graphs):
+            # fall through to the NumPy formulation
 
         # pointer doubling: end edge + hop distance for every edge.
         # The unresolved set is carried as a compacted worklist — the

@@ -12,9 +12,12 @@ one parse produces
     byte offset, linebases, linewidth) so we can write a matching .fai
     without shelling out (rule faidx, bin/ntsynt_run_pipeline.smk:48-53).
 
-Supports plain and gzip FASTA, parsed in NumPy.
+Plain files are parsed by the host library's OpenMP packer
+(``csrc/host/fastaio.cpp``, built by ops/_kernels.build_host); gzip
+files, and any file under ``native=False``, by NumPy.
 """
 
+import contextlib
 from dataclasses import dataclass
 import gzip
 import os
@@ -69,10 +72,124 @@ class PackedGenome:
         return [s.decode() for s in mat.reshape(-1).view(f"S{k}")]
 
 
-def read_fasta(path: str, keep_raw: bool = True) -> PackedGenome:
-    """Parse a FASTA(.gz) file into a PackedGenome (NumPy only: the
-    JAX package's optional OpenMP reader, csrc/libfastaio.so, is built
-    for one host CPU and is not loaded by this package)."""
+def _native_lib():
+    """The host library (csrc/host/fastaio.cpp's OpenMP packer), built on
+    first use; a failed build raises."""
+    from ..ops import _kernels
+
+    return _kernels.host_lib()
+
+
+@contextlib.contextmanager
+def _omp_threads(lib, threads: int):
+    """Calls inside run with ``threads`` > 0 set the calling thread's
+    OpenMP thread count (omp_set_num_threads, which the packer calls);
+    it is restored on exit, since torch's CPU ops share the runtime when
+    both load one libgomp.so.1, and a read at -t 1 would leave them on
+    one thread."""
+    if threads <= 0:
+        yield
+        return
+    prev = lib.omp_get_max_threads()
+    try:
+        yield
+    finally:
+        lib.omp_set_num_threads(prev)
+
+
+def build_stream(codes, offsets, lengths, starts, out_len: int, threads: int = 0) -> np.ndarray:
+    """An ``out_len``-byte uint8 buffer holding contig i
+    (``codes[offsets[i]:offsets[i] + lengths[i]]``) at ``starts[i]`` and
+    code 4 everywhere else, laid out in one native OpenMP pass
+    (fastaio_build_stream: the JAX package's pack_stream_native without
+    its 2-bit packing, which the card does not need)."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    n = len(lengths)
+    if len(offsets) != n or len(starts) != n:
+        raise ValueError("build_stream: offsets, lengths and starts differ in length")
+    ends = starts + lengths
+    if n and (
+        (lengths < 0).any() or (offsets < 0).any() or (offsets + lengths > len(codes)).any()
+        or starts[0] < 0 or (starts[1:] < ends[:-1]).any() or ends[-1] > out_len
+    ):
+        raise ValueError("build_stream: contigs out of range or overlapping")
+    out = np.empty(out_len, dtype=np.uint8)
+    lib = _native_lib()
+    with _omp_threads(lib, threads):
+        lib.fastaio_build_stream(
+            codes.ctypes.data, offsets.ctypes.data, lengths.ctypes.data, starts.ctypes.data,
+            n, out.ctypes.data, out_len, threads,
+        )
+    return out
+
+
+def _read_fasta_native(path: str, keep_raw: bool, lib, threads: int = 0) -> PackedGenome | None:
+    import ctypes
+
+    with _omp_threads(lib, threads):
+        h = lib.fastaio_parse(path.encode(), threads)
+    if not h:
+        return None
+    try:
+        n = int(lib.fastaio_n_contigs(h))
+        total = int(lib.fastaio_total(h))
+
+        def arr64(fn):
+            ptr = fn(h)
+            return np.ctypeslib.as_array(ptr, shape=(n,)).copy() if n else np.zeros(0, np.int64)
+
+        lengths = arr64(lib.fastaio_lengths)
+        offsets = arr64(lib.fastaio_offsets)
+        fai_off = arr64(lib.fastaio_fai_offsets)
+        fai_lb = arr64(lib.fastaio_fai_linebases)
+        fai_lw = arr64(lib.fastaio_fai_linewidth)
+        names_blob = ctypes.string_at(lib.fastaio_names(h), int(lib.fastaio_names_len(h)))
+        names = names_blob.decode().split("\x00")[:-1]
+        codes = (
+            np.ctypeslib.as_array(lib.fastaio_codes(h), shape=(total,)).copy()
+            if total
+            else np.zeros(0, np.uint8)
+        )
+        raw = (
+            np.ctypeslib.as_array(lib.fastaio_raw(h), shape=(total,)).copy()
+            if (keep_raw and total)
+            else (np.zeros(0, np.uint8) if keep_raw else None)
+        )
+    finally:
+        lib.fastaio_free(h)
+    return PackedGenome(
+        path=path,
+        name=os.path.basename(path),
+        contig_names=names,
+        lengths=lengths.astype(np.int64),
+        offsets=offsets.astype(np.int64),
+        codes=codes,
+        raw=raw,
+        fai_offsets=fai_off.astype(np.int64),
+        fai_linebases=fai_lb.astype(np.int64),
+        fai_linewidth=fai_lw.astype(np.int64),
+    )
+
+
+def read_fasta(path: str, keep_raw: bool = True, native: bool | None = None,
+               threads: int = 0) -> PackedGenome:
+    """Parse a FASTA(.gz) file into a PackedGenome.
+
+    Plain (non-gzip) files go through the host library's OpenMP packer
+    (``threads`` > 0 sets its thread count; 0 leaves OpenMP's). A .gz
+    file, or native=False, takes the NumPy path; so does a file the
+    packer cannot map (empty or unreadable) under native=None, while
+    native=True raises for it.
+    """
+    if native is not False and not path.endswith(".gz"):
+        g = _read_fasta_native(path, keep_raw, _native_lib(), threads=threads)
+        if g is not None:
+            return g
+        if native:
+            raise IOError(f"native FASTA parse failed for {path}")
     if path.endswith(".gz"):
         with gzip.open(path, "rb") as fin:
             data = fin.read()

@@ -12,8 +12,8 @@ package's flags, echo and output containers, plus ``--device``:
     writes ``<prefix>.bf``.
 
 The device work lives in ops/bf_build; these wrappers parse arguments,
-echo parameters, read the FASTAs and save the filter. ``-t`` is accepted
-for compatibility (the FASTA reader here is NumPy).
+echo parameters, read the FASTAs and save the filter. ``-t`` controls
+host FASTA-reader threads.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def common_main(argv=None) -> int:
            ("--fpr", args.fpr), ("-p", args.p), ("--device", args.device)])
     # sorted so the output BF is identical regardless of argument order
     # (src/ntsynt_make_common_bf.cpp:105-107)
-    genomes = [read_fasta(p) for p in sorted(args.genome)]
+    genomes = [read_fasta(p, threads=args.t) for p in sorted(args.genome)]
     bf = bf_build.build_common_bf(genomes, args.k, fpr=args.fpr, bf_bytes=args.bf,
                                   device=args.device)
     out = bf.save(f"{args.p}.bf", fmt=args.format)
@@ -107,7 +107,7 @@ def repeat_main(argv=None) -> int:
 
     _echo([("--genome", " ".join(args.genome)), ("-t", args.t), ("-k", args.k),
            ("--bf", args.bf), ("--fpr", args.fpr), ("-p", args.p), ("--device", args.device)])
-    genomes = [read_fasta(p) for p in args.genome]
+    genomes = [read_fasta(p, threads=args.t) for p in args.genome]
     bf = bf_build.build_repeat_bf(genomes, args.k, fpr=args.fpr, bf_bytes=args.bf,
                                   device=args.device)
     out = bf.save(f"{args.p}.bf", fmt=args.format)

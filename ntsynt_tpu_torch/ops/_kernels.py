@@ -9,6 +9,13 @@ that keeps the build to seconds instead of the minutes a
 ``torch.utils.cpp_extension`` build of the same sources takes. The build
 is redone only when the SHA-256 of the sources and flags changes.
 
+The host helpers (``csrc/host/*.cpp``: the OpenMP FASTA packer and the
+chain walker, the JAX package's ``csrc/fastaio.cpp`` and
+``csrc/graphwalk.cpp``) are built apart from the kernels, by ``g++``
+(``$CXX`` if set; no ``-march``, so the library runs on any CPU of the
+build host's architecture) into ``_build/libntsynt_host.so``, linked
+against torch's OpenMP runtime; ``build_host`` needs no CUDA.
+
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on
 the card, and ``SHAPES`` holds each such launch's sizes; the plain
 PyTorch versions used for CPU tensors do not count.
@@ -19,8 +26,10 @@ import functools
 import glob
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -39,10 +48,16 @@ LAUNCHES = {"nthash": 0, "winmin": 0, "compact": 0, "bf_insert": 0, "bf_sweep": 
 # (n, bits_log2, "insert" | "cascade")
 SHAPES = {name: [] for name in LAUNCHES}
 
+HOST_SRC = os.path.join(CSRC, "host")
+HOST_LIB_NAME = "libntsynt_host.so"
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-fopenmp"]
+
 # the last build's wall seconds and whether it was reused from _build/
 BUILD_INFO = {"seconds": None, "cached": None}
+HOST_BUILD_INFO = {"seconds": None, "cached": None}
 
 _LIB = None
+_HOST_LIB = None
 _LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -77,6 +92,33 @@ _SIGNATURES = {
     # words, prev (NULL: insert), binned, offsets, first, n, n_cells, chunk, cell_log2, stream
     "ntsynt_bf_sweep_apply": [_P, _P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               _P],
+}
+
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+# host library: name -> (restype, argtypes)
+_HOST_SIGNATURES = {
+    "fastaio_parse": (_P, [ctypes.c_char_p, ctypes.c_int]),
+    "fastaio_n_contigs": (_I64, [_P]),
+    "fastaio_total": (_I64, [_P]),
+    "fastaio_names_len": (_I64, [_P]),
+    "fastaio_lengths": (_I64P, [_P]),
+    "fastaio_offsets": (_I64P, [_P]),
+    "fastaio_fai_offsets": (_I64P, [_P]),
+    "fastaio_fai_linebases": (_I64P, [_P]),
+    "fastaio_fai_linewidth": (_I64P, [_P]),
+    "fastaio_codes": (_U8P, [_P]),
+    "fastaio_raw": (_U8P, [_P]),
+    "fastaio_names": (ctypes.POINTER(ctypes.c_char), [_P]),
+    "fastaio_free": (None, [_P]),
+    # codes, offsets, lengths, starts, n_contigs, out, out_len, threads
+    "fastaio_build_stream": (None, [_P, _P, _P, _P, _I64, _P, _I64, ctypes.c_int]),
+    # nxt, du, dv, poison, starts, n_starts, m2, out_nodes, out_offsets, out_cap
+    "graphwalk_chains": (_I64, [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64]),
+    # the OpenMP runtime the library links (the calling thread's ICV)
+    "omp_get_max_threads": (ctypes.c_int, []),
+    "omp_set_num_threads": (None, [ctypes.c_int]),
 }
 
 
@@ -119,31 +161,103 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> str:
-    """Compile every csrc/*.cu with one nvcc call unless the library for
-    the current source digest is already in _build/. Returns its path."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-    stamp = os.path.join(BUILD_DIR, LIB_NAME + ".sha256")
-    digest = source_digest()
+def _build_cached(lib_name: str, digest: str, commands, info: dict, build_dir: str) -> str:
+    """Run the argument lists commands() gives, in a fresh directory
+    inside build_dir (the last writes lib_name there), unless build_dir
+    already holds lib_name for this digest. The library is moved into place
+    whole, so concurrent builds (test workers) never load a
+    half-written one. Returns its path; a failed build raises with the
+    compiler's output."""
+    os.makedirs(build_dir, exist_ok=True)
+    lib_path = os.path.join(build_dir, lib_name)
+    stamp = os.path.join(build_dir, lib_name + ".sha256")
     t0 = time.perf_counter()
     if os.path.exists(lib_path) and os.path.exists(stamp):
         with open(stamp) as fin:
             if fin.read().strip() == digest:
-                BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=True)
+                info.update(seconds=time.perf_counter() - t0, cached=True)
                 return lib_path
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
-        )
-    os.replace(tmp, lib_path)
-    with open(stamp, "w") as fout:
-        fout.write(digest + "\n")
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False)
+    work = tempfile.mkdtemp(prefix=f".{lib_name}.", dir=build_dir)
+    try:
+        for cmd in commands():
+            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=work)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{os.path.basename(cmd[0])} failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stderr}{proc.stdout}"
+                )
+        os.replace(os.path.join(work, lib_name), lib_path)
+        with open(os.path.join(work, "stamp"), "w") as fout:
+            fout.write(digest + "\n")
+        os.replace(os.path.join(work, "stamp"), stamp)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    info.update(seconds=time.perf_counter() - t0, cached=False)
     return lib_path
+
+
+def build() -> str:
+    """Compile every csrc/*.cu with one nvcc call unless the library for
+    the current source digest is already in _build/. Returns its path."""
+    return _build_cached(LIB_NAME, source_digest(),
+                         lambda: [[_nvcc(), *NVCC_FLAGS, "-o", LIB_NAME, *sources()]],
+                         BUILD_INFO, BUILD_DIR)
+
+
+def host_sources() -> list:
+    """The host helpers' translation units g++ compiles."""
+    return sorted(glob.glob(os.path.join(HOST_SRC, "*.cpp")))
+
+
+def _openmp_runtime() -> str:
+    """The OpenMP runtime the host library links: torch's own
+    libgomp.so.1 where its wheel ships one (the loader then maps that one
+    runtime for both, and the link checks the symbol versions the process
+    will have), else the compiler's -lgomp."""
+    import torch
+
+    bundled = os.path.join(os.path.dirname(torch.__file__), "lib", "libgomp.so.1")
+    return bundled if os.path.exists(bundled) else "-lgomp"
+
+
+def _host_commands() -> list:
+    """Compile csrc/host/*.cpp with $CXX (g++ by default) and
+    HOST_FLAGS in one call, then link them and the OpenMP runtime into
+    HOST_LIB_NAME in a second: the link names the runtime, since a
+    toolchain may compile -fopenmp without shipping the spec file that
+    lets -fopenmp link it."""
+    cxx = shlex.split(os.environ.get("CXX") or "g++")
+    objects = [os.path.splitext(os.path.basename(p))[0] + ".o" for p in host_sources()]
+    return [[*cxx, *HOST_FLAGS, "-c", *host_sources()],
+            [*cxx, "-shared", "-Wl,--no-undefined", "-o", HOST_LIB_NAME, *objects,
+             _openmp_runtime()]]
+
+
+def build_host(build_dir: str = BUILD_DIR) -> str:
+    """Build the host library (no nvcc needed) unless the one for the
+    current commands and sources is already in build_dir. Returns its
+    path."""
+    commands = _host_commands()
+    h = hashlib.sha256(repr(commands).encode())
+    for path in host_sources():
+        with open(path, "rb") as fin:
+            h.update(fin.read())
+    return _build_cached(HOST_LIB_NAME, h.hexdigest(), lambda: commands, HOST_BUILD_INFO,
+                         build_dir)
+
+
+def host_lib():
+    """The loaded host library (built on first call)."""
+    global _HOST_LIB
+    with _LOCK:
+        if _HOST_LIB is None:
+            handle = ctypes.CDLL(build_host())
+            for name, (restype, argtypes) in _HOST_SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _HOST_LIB = handle
+        return _HOST_LIB
 
 
 def lib():

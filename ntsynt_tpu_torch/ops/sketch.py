@@ -26,6 +26,7 @@ import torch
 
 from . import nthash
 from .. import resolve_device
+from ..io import fasta as fio
 from .sketch_device import sketch_stream
 
 
@@ -73,14 +74,10 @@ class _Stream:
 
     @property
     def codes(self) -> np.ndarray:
-        """The uint8 stream: contigs at ``starts``, code 4 elsewhere."""
+        """The uint8 stream: contigs at ``starts``, code 4 elsewhere (laid
+        out by the host library in one OpenMP pass)."""
         g = self.genome
-        buf = np.full(self.total, 4, dtype=np.uint8)
-        for i in range(g.n_contigs):
-            o, ln = int(g.offsets[i]), int(g.lengths[i])
-            s = int(self.starts[i])
-            buf[s : s + ln] = self._src[o : o + ln]
-        return buf
+        return fio.build_stream(self._src, g.offsets, g.lengths, self.starts, self.total)
 
     def legit_windows(self) -> np.ndarray:
         """bool [n_windows_stream]: windows fully inside one contig."""

@@ -41,7 +41,7 @@ def build_parser():
     )
     parser.add_argument(
         "--btllib_t",
-        help="Host threads for reading fasta files (accepted for compatibility) [4]",
+        help="Number of host threads for reading fasta files [4]",
         type=int,
         default=4,
     )
@@ -96,7 +96,7 @@ def main(argv=None):
         fa_name = m.group(1)
         genome = None
         if fa_name in fasta_by_base:
-            genome = read_fasta(fasta_by_base[fa_name])
+            genome = read_fasta(fasta_by_base[fa_name], threads=args.btllib_t)
         records = read_sketch_tsv(tsv)
         assemblies[fa_name] = AssemblyMinimizers.from_tsv_records(
             fa_name, records, genome=genome, repeat_out_filter=rep_filter

@@ -119,8 +119,10 @@ def test_cli_rejects_unported_flags_and_missing_cuda(tmp_path, base_genome, monk
 
 def test_port_runs_without_jax(tmp_path, base_genome):
     """In a fresh interpreter, importing the port and running its CLI on
-    the CPU (with and without --filter), its make-bf CLIs and run_core
-    loads neither jax nor the JAX package."""
+    the CPU (with -t, with and without --filter), its make-bf CLIs,
+    run_core and the sidecar CLIs loads neither jax nor the JAX package,
+    and never opens the JAX package's csrc/*.so: the FASTA reads and the
+    chain walk go through the port's own host library."""
     rng = np.random.default_rng(5)
     g = base_genome[:60_000]
     m = g.copy()
@@ -128,25 +130,47 @@ def test_port_runs_without_jax(tmp_path, base_genome):
     m[snp] = (m[snp] + 1) % 4
     fa = write_fasta(tmp_path / "x.fa", [("chr1", g)])
     fb = write_fasta(tmp_path / "y.fa", [("chr1", m)])
+    csrc = os.path.join(REPO, "csrc")
     code = (
-        "import sys\n"
+        "import os, sys\n"
+        f"CSRC = {csrc!r}\n"
+        "opened = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen') and isinstance(args[0], (str, bytes)):\n"
+        "        p = os.path.abspath(os.fsdecode(args[0]))\n"
+        "        if p.startswith(CSRC + os.sep) and p.endswith('.so'):\n"
+        "            opened.append(p)\n"
+        "sys.addaudithook(hook)\n"
         "import ntsynt_tpu_torch\n"
         "from ntsynt_tpu_torch.cli import main\n"
         f"rc = main([{fa!r}, {fb!r}, '-d', '1', '-w', '100', '--w_rounds', '50', '10',"
-        " '-b', '500', '--indel', '500', '--merge', '3000', '-p', 'nj', '--device', 'cpu'])\n"
+        " '-b', '500', '--indel', '500', '--merge', '3000', '-p', 'nj', '-t', '3',"
+        " '--device', 'cpu'])\n"
         f"rc |= main([{fa!r}, {fb!r}, '-d', '1', '-w', '100', '--w_rounds', '50', '10',"
-        " '--filter', 'Filter', '-p', 'nf', '--device', 'cpu'])\n"
+        " '--filter', 'Filter', '-p', 'nf', '-t', '1', '--device', 'cpu'])\n"
         "from ntsynt_tpu_torch import make_bf, run_core\n"
         f"rc |= make_bf.common_main(['--genome', {fa!r}, {fb!r}, '-k', '24', '-p', 'c',"
-        " '--device', 'cpu'])\n"
+        " '-t', '2', '--device', 'cpu'])\n"
         f"rc |= make_bf.repeat_main(['--genome', {fa!r}, '-k', '24', '-p', 'r', '--format',"
-        " 'native', '--device', 'cpu'])\n"
+        " 'native', '-t', '2', '--device', 'cpu'])\n"
         f"rc |= run_core.main(['x.fa.k24.w100.tsv', 'y.fa.k24.w100.tsv', '--fastas', {fa!r},"
         f" {fb!r}, '-k', '24', '-w', '100', '--w-rounds', '50', '10', '--common', 'c.bf',"
-        " '--repeat', 'r.bf', '--filter', 'Indexlr', '-p', 'rc', '--device', 'cpu'])\n"
+        " '--repeat', 'r.bf', '--filter', 'Indexlr', '-p', 'rc', '--btllib_t', '2',"
+        " '--device', 'cpu'])\n"
+        "from ntsynt_tpu_torch.analysis import stats\n"
+        "from ntsynt_tpu_torch.viz import cli as viz\n"
+        "stats.main(['--tsv', 'nj.synteny_blocks.tsv', '--fai', 'x.fa.fai', 'y.fa.fai'])\n"
+        "rc |= viz.sort_blocks_main(['--synteny_blocks', 'nj.synteny_blocks.tsv',"
+        " '--sort_order', 'y.fa', 'x.fa'])\n"
+        "rc |= viz.gggenomes_main(['--fai', 'x.fa.fai', 'y.fa.fai', '--blocks',"
+        " 'nj.synteny_blocks.tsv', '-p', 'gv', '-l', '1000'])\n"
+        "rc |= viz.painting_main(['nj.synteny_blocks.tsv', '--target', 'x.fa', '-o', 'pt.tsv'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ntsynt_tpu' or m.startswith('ntsynt_tpu.'))\n"
+        "maps = open('/proc/self/maps').read()\n"
         "assert rc == 0 and not bad, bad\n"
+        "assert not opened and CSRC + os.sep not in maps, opened\n"
+        "assert 'libntsynt_host.so' in maps\n"
         "print('NO_JAX_OK')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -155,8 +179,9 @@ def test_port_runs_without_jax(tmp_path, base_genome):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+    assert "Number_blocks\t" in proc.stdout
     for f in ("nj.synteny_blocks.tsv", "nf.synteny_blocks.tsv", "nf.repeat.bf", "c.bf", "r.bf",
-              "rc.synteny_blocks.tsv"):
+              "rc.synteny_blocks.tsv", "gv.links.tsv", "gv.sequence_lengths.tsv", "pt.tsv"):
         assert (tmp_path / f).exists(), f
 
 
