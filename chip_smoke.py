@@ -52,9 +52,22 @@ Phases, each printing one JSON line with its elapsed seconds:
      main path's and of a gigabase genome's size;
  12. sidecars: stats, sort_blocks, the gggenomes files and the
      chromosome painting on the main path's blocks TSV and .fai files,
-     with their seconds, and the plots where matplotlib is installed.
+     with their seconds, and the plots where matplotlib is installed;
+ 13. mesh: the multi-process path (``python -m
+     ntsynt_tpu_torch.parallel.multihost``, one process per rank, each in
+     its own directory with its own timeout) on the 2 x 100 Mbp pair: one
+     rank under NCCL must write the main path's blocks; two ranks sharing
+     the card under NCCL (what NCCL says is printed; expected to be
+     refused, and a hang or any other failure fails), then under gloo on
+     the default path and with --filter Indexlr, must write the
+     single-device runs' blocks from rank 0 and nothing from rank 1,
+     every rank launching K1-K4 on the card; the default gloo run again
+     in the same directories, where rank 0 reuses its sketch TSVs; two
+     ranks (``chip_smoke.py --mesh-worker``) build the common filter,
+     which must equal the single-device cascade's words, and time
+     allreduce_or and _allreduce_dup on a 2^32-bit filter.
 Each path's kernel counts are set to 0 just before it and read just
-after. Then the kernel table as one JSON line, nvidia-smi's "name, power
+after (a mesh rank's, which start at 0 in its own process, at its end). Then the kernel table as one JSON line, nvidia-smi's "name, power
 limit" line, and last {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero; without CUDA, or without the
 package beside it, it exits non-zero before printing any result.
@@ -1087,6 +1100,365 @@ def phase_sidecars(tmp: str, blocks_tsv: str, info: dict) -> None:
     info["plots"] = {os.path.basename(p): os.path.getsize(p) for p in pngs}
 
 
+# ---------------------------------------------------------------------------
+# the mesh path: parallel/multihost.py subprocesses, one per rank
+# ---------------------------------------------------------------------------
+
+MESH_KERNELS = PATH_KERNELS["main"]
+LAUNCH_LINE = re.compile(r"\[multihost\] process (\d+) launches (\{.*\})")
+FILTER_WORDS_LOG2 = 27  # 2^32 bits: the common filter at 100 Mbp, 512 MiB of int32 words
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def subprocess_env() -> dict:
+    """This checkout on the path; NCCL and gloo on the loopback device
+    alone."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
+    env["PYTHONPATH"] = os.pathsep.join([here] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def run_ranks(commands, workdirs, timeout: int):
+    """Start one process per rank together, each in its own directory;
+    wait up to timeout seconds for all. Returns [(returncode, output)];
+    a rank still running at the timeout is killed and reported as None.
+    No process outlives the call."""
+    procs = [subprocess.Popen(cmd, cwd=wd, env=subprocess_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd, wd in zip(commands, workdirs)]
+    deadline = time.monotonic() + timeout
+    results = []
+    try:
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+                results.append((p.returncode, out))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                results.append((None, p.communicate()[0]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def multihost_run(tmp: str, name: str, world: int, cli_args, backend=None,
+                  timeout: int = 180):
+    """world ranks of ``python -m ntsynt_tpu_torch.parallel.multihost``,
+    rank r in tmp/name/rank<r> (made if missing, else run again in).
+    Returns (results, workdirs, the seconds from their start to the last
+    one's end)."""
+    port = free_port()
+    dirs = [os.path.join(tmp, name, f"rank{r}") for r in range(world)]
+    commands = []
+    for r, wd in enumerate(dirs):
+        os.makedirs(wd, exist_ok=True)
+        commands.append([sys.executable, "-m", "ntsynt_tpu_torch.parallel.multihost",
+                         "--coordinator", f"localhost:{port}", "--num-processes", str(world),
+                         "--process-id", str(r), *(["--backend", backend] if backend else []),
+                         "--", *cli_args, "-d", "1", "-p", "smoke", "--benchmark"])
+    t0 = time.perf_counter()
+    results = run_ranks(commands, dirs, timeout)
+    return results, dirs, round(time.perf_counter() - t0, 3)
+
+
+def check_ranks(name: str, results, dirs, want_blocks: str, info: dict) -> None:
+    """Every rank exited 0 and launched every kernel of the path on the
+    card; rank 0's blocks equal want_blocks'; the other ranks wrote no
+    file."""
+    launches = []
+    for r, (rc, out) in enumerate(results):
+        if rc != 0:
+            state = "hung and was killed" if rc is None else f"exited {rc}"
+            raise AssertionError(f"mesh {name}: rank {r} {state}:\n{out[-3000:]}")
+        m = [json.loads(g) for i, g in LAUNCH_LINE.findall(out) if int(i) == r]
+        if len(m) != 1:
+            raise AssertionError(f"mesh {name}: rank {r} printed no launch counts")
+        for kernel in MESH_KERNELS:
+            if m[0][kernel] <= 0:
+                raise AssertionError(f"mesh {name}: rank {r} never launched {kernel}")
+        launches.append(m[0])
+        if r and os.listdir(dirs[r]):
+            raise AssertionError(f"mesh {name}: rank {r} wrote {os.listdir(dirs[r])}")
+    with open(os.path.join(dirs[0], "smoke.synteny_blocks.tsv"), "rb") as f1, \
+            open(want_blocks, "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError(f"mesh {name}: rank 0's blocks differ from the single-device run's")
+    info["launches_per_rank"] = launches
+    info["rank0_stages_s"] = {k: v["s"] for k, v in
+                              read_stages(os.path.join(dirs[0], "smoke.time.tsv")).items()}
+    info["blocks_equal_single"] = True
+    info["other_ranks_wrote_nothing"] = True
+
+
+def rerun_ranks(tmp: str, name: str, world: int, cli_args, want_blocks: str, info: dict,
+                backend=None, timeout: int = 180) -> None:
+    """The multihost run ``name`` again in its directories: rank 0 finds
+    its sketch TSVs fresh and reuses them (their mtimes stay), the other
+    ranks, whose directories are empty, follow rank 0's choice and get
+    its sketches; the blocks stay want_blocks'."""
+    rank0 = os.path.join(tmp, name, "rank0")
+    tsvs = [f for f in os.listdir(rank0) if f.endswith(".k24.w1000.tsv")]
+    mtimes = {f: os.path.getmtime(os.path.join(rank0, f)) for f in tsvs}
+    results, dirs, wall = multihost_run(tmp, name, world, cli_args, backend=backend,
+                                        timeout=timeout)
+    info["processes_s"] = wall
+    check_ranks(f"{name} rerun", results, dirs, want_blocks, info)
+    if len(tsvs) != 2 or {f: os.path.getmtime(os.path.join(rank0, f)) for f in tsvs} != mtimes:
+        raise AssertionError(f"{name} rerun: rank 0 did not reuse its sketch TSVs {tsvs}")
+    info["sketch_tsvs_reused"] = tsvs
+
+
+def mesh_worker(rank: int, world: int, port: int, backend: str, fa: str, fb: str,
+                out: str) -> int:
+    """One rank of the collectives check (``chip_smoke.py --mesh-worker
+    ...``, started by run_collectives): distributed_common_bf against the
+    single-device cascade, then allreduce_or and _allreduce_dup on a
+    2^32-bit filter of seeded random words, timed, against the OR and the
+    twice-set bits of every rank's words; under gloo also the parts of
+    the exchange (the words' trip through host memory, the collective on
+    host tensors)."""
+    import torch
+
+    from ntsynt_tpu_torch.io.fasta import read_fasta
+    from ntsynt_tpu_torch.ops import _kernels, bf_build
+    from ntsynt_tpu_torch.parallel import mesh as pmesh
+    from ntsynt_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{port}", world, rank, backend=backend)
+    mesh = pmesh.make_mesh()
+    dev = mesh.device
+    res = {"rank": rank, "backend": backend, "device": str(dev)}
+    genomes = [read_fasta(fb), read_fasta(fa)]
+    # the group's first all_to_all and all-gather (1 MiB), which set up
+    # the ranks' connections, apart from the filter's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pmesh.allreduce_or(torch.zeros(1 << 18, dtype=torch.int32, device=dev), mesh)
+    torch.cuda.synchronize()
+    res["first_allreduce_or_1mib_s"] = round(time.perf_counter() - t0, 4)
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist_bf = pmesh.distributed_common_bf(genomes, 24, mesh=mesh)
+    torch.cuda.synchronize()
+    res["distributed_common_bf_s"] = round(time.perf_counter() - t0, 4)
+    res["launches"] = dict(_kernels.LAUNCHES)
+    for kernel in ("nthash", "bf_insert"):
+        if res["launches"][kernel] <= 0:
+            raise AssertionError(f"rank {rank}: distributed_common_bf never launched {kernel}")
+    # the single-device cascade on the same genomes, already read: the
+    # work the ranks split
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = bf_build.build_common_bf(genomes, 24, device=dev)
+    torch.cuda.synchronize()
+    res["single_common_bf_s"] = round(time.perf_counter() - t0, 4)
+    if not torch.equal(dist_bf.words, single.words):
+        raise AssertionError(f"rank {rank}: distributed_common_bf differs from the single cascade")
+    res.update(num_bits=dist_bf.num_bits, popcount=dist_bf.popcount(), words_equal_single=True)
+    del dist_bf, single, genomes
+    torch.cuda.empty_cache()
+
+    n = 1 << FILTER_WORDS_LOG2
+    words = []
+    for r in range(world):
+        gen = torch.Generator(device=dev).manual_seed(SEED + r)
+        words.append(torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32, device=dev,
+                                   generator=gen))
+    mine = words[rank]
+    want_or = words[0].clone()
+    want_twice = torch.zeros_like(want_or)
+    for w in words[1:]:
+        want_twice |= want_or & w
+        want_or |= w
+    del words
+    reps = 3
+    for name, fn in (("allreduce_or", lambda: pmesh.allreduce_or(mine, mesh)),
+                     ("allreduce_dup", lambda: pmesh._allreduce_dup(mine, mesh))):
+        got = fn()  # warm-up and check
+        ok = (torch.equal(got, want_or) if name == "allreduce_or"
+              else torch.equal(got[0], want_or) and torch.equal(got[1], want_twice))
+        if not ok:
+            raise AssertionError(f"rank {rank}: {name} differs from the OR of the ranks' words")
+        del got
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        res[f"{name}_s"] = round((time.perf_counter() - t0) / reps, 4)
+    if backend == "gloo":
+        # the exchange's parts: the words' round trip through host memory
+        # (pageable, as the mesh stages them) ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = mine.cpu()
+        res["d2h_s"] = round(time.perf_counter() - t0, 4)
+        t0 = time.perf_counter()
+        host.to(dev)
+        torch.cuda.synchronize()
+        res["h2d_s"] = round(time.perf_counter() - t0, 4)
+        # ... and the collectives alone on host tensors
+        cmesh = pmesh.Mesh(mesh.group, mesh.rank, mesh.size, torch.device("cpu"))
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pmesh.allreduce_or(host, cmesh)
+        res["allreduce_or_host_tensors_s"] = round((time.perf_counter() - t0) / reps, 4)
+    res["filter_bytes"] = 4 * n
+    with open(out, "w") as fout:
+        json.dump(res, fout)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_collectives(tmp: str, world: int, backend: str, fa: str, fb: str, info: dict) -> None:
+    """world ranks of mesh_worker under backend; their results and the
+    bytes each rank moves."""
+    port = free_port()
+    outs = [os.path.join(tmp, f"mesh_worker{r}.json") for r in range(world)]
+    here = os.path.abspath(__file__)
+    results = run_ranks(
+        [[sys.executable, here, "--mesh-worker", str(r), str(world), str(port), backend, fa, fb,
+          outs[r]] for r in range(world)], [tmp] * world, timeout=180)
+    for r, (rc, out) in enumerate(results):
+        if rc != 0:
+            state = "hung and was killed" if rc is None else f"exited {rc}"
+            raise AssertionError(f"mesh worker rank {r} {state}:\n{out[-3000:]}")
+    workers = []
+    for o in outs:
+        with open(o) as fin:
+            workers.append(json.load(fin))
+    info["collectives"] = workers
+    # bytes each rank sends for a filter of B bytes over D ranks: the
+    # all_to_all (D-1)/D B, then one all-gather of (D-1)/D B per output;
+    # under gloo the card's words also cross host memory
+    b, d = workers[0]["filter_bytes"], world
+    info["collective_bytes_sent_per_rank"] = {
+        "allreduce_or": 2 * (d - 1) * b // d, "allreduce_dup": 3 * (d - 1) * b // d}
+    if backend == "gloo":
+        info["collective_bytes_staged_per_rank"] = {
+            "allreduce_or": {"to_host": b + b // d, "to_card": 2 * b},
+            "allreduce_dup": {"to_host": b + 2 * b // d, "to_card": 3 * b}}
+
+
+def phase_mesh(tmp: str, fa: str, fb: str, main_out: str, indexlr_out: str, info: dict,
+               kernels: dict) -> None:
+    """The mesh path (parallel/mesh.py, parallel/multihost.py) on the one
+    card, each rank a process of its own with its own timeout:
+    a one-rank NCCL group through the multihost CLI; two ranks sharing the
+    card under NCCL (expected to be refused; what NCCL says is printed),
+    then under gloo on the default path and with --filter Indexlr, each
+    rank's kernels on the card, and the default run again in its
+    directories (a rerun that reuses rank 0's sketch TSVs); the two-rank
+    common filter against the
+    single cascade; allreduce_or and _allreduce_dup on the 2^32-bit
+    filter."""
+    results, dirs, wall = multihost_run(tmp, "mesh_nccl_1", 1, [fa, fb])
+    if "(cuda, nccl)" not in results[0][1]:
+        raise AssertionError(f"mesh nccl_1: not a cuda/nccl rank:\n{results[0][1][-3000:]}")
+    info["nccl_one_rank"] = row = {"processes_s": wall}
+    check_ranks("nccl_1", results, dirs, main_out, row)
+
+    results, dirs, _ = multihost_run(tmp, "mesh_nccl_2", 2, [fa, fb], timeout=120)
+    said = [line for rc, out in results for line in out.splitlines()
+            if re.search(r"(?i)nccl|duplicate|error", line)]
+    if any(rc is None for rc, _ in results):
+        raise AssertionError("mesh nccl_2: a rank hung and was killed:\n" + "\n".join(said[-6:]))
+    if all(rc == 0 for rc, _ in results):
+        info["nccl_two_ranks_one_card"] = "ran"
+        check_ranks("nccl_2", results, dirs, main_out, {})
+    elif not any(re.search(r"Duplicate GPU|ncclInvalidUsage", out) for _, out in results):
+        raise AssertionError("mesh nccl_2: a rank failed, and not by NCCL's refusal of two ranks "
+                             "on one card:\n" + "\n".join(out[-2000:] for _, out in results))
+    else:
+        info["nccl_two_ranks_one_card"] = {
+            "refused": True, "returncodes": [rc for rc, _ in results],
+            "said": said[-6:]}
+        print("mesh: NCCL refused two ranks on one card:", *said[-6:], sep="\n  ", flush=True)
+
+    # each run's timeout is about seven times its time on the card (PERF.md §5)
+    for name, args, want, timeout in (
+            ("gloo_2", [fa, fb], main_out, 180),
+            ("gloo_2_indexlr", [fa, fb, "--filter", "Indexlr"], indexlr_out, 240)):
+        results, dirs, wall = multihost_run(tmp, f"mesh_{name}", 2, args, backend="gloo",
+                                            timeout=timeout)
+        info[name] = row = {"processes_s": wall}
+        check_ranks(name, results, dirs, want, row)
+    info["gloo_2_rerun"] = {}
+    rerun_ranks(tmp, "mesh_gloo_2", 2, [fa, fb], main_out, info["gloo_2_rerun"], backend="gloo")
+
+    run_collectives(tmp, 2, "gloo", fa, fb, info)
+    for name in MESH_KERNELS:
+        kernels[name]["mesh_launches"] = [row[name] for row in info["gloo_2"]["launches_per_rank"]]
+
+
+def main_cards() -> int:
+    """``python3 chip_smoke.py --mesh-cards``, on a machine with several
+    cards: the mesh path under NCCL, one rank per visible card, on the
+    2 x 100 Mbp pair, default and --filter Indexlr, against the
+    single-device CLI on card 0, and the default run again in its
+    directories (rank 0 reuses its sketch TSVs); then the collectives at
+    as many ranks."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        print(f"chip_smoke.py --mesh-cards: needs two CUDA cards or more, found {n}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    from ntsynt_tpu_torch.ops import _kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    emit({"phase": "device", "nvidia_smi": smi.strip().splitlines(), "count": n,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    _kernels.build()
+    _kernels.build_host()
+    tmp = tempfile.mkdtemp(prefix="ntsynt_cards_")
+    try:
+        fa, fb = make_pair(tmp, GENOME_BP, INV_START, INV_BP, 0.001, SEED)
+        for name, extra in (("default", []), ("indexlr", ["--filter", "Indexlr"])):
+            with phase(f"mesh_nccl_{n}_{name}", {}) as info:
+                work = os.path.join(tmp, f"single_{name}")
+                os.makedirs(work)
+                t0 = time.perf_counter()
+                single = run_cli(work, [fa, fb, *extra, "-d", "1", "-p", "smoke"])
+                info["single_device_cli_s"] = round(time.perf_counter() - t0, 3)
+                results, dirs, wall = multihost_run(tmp, f"mesh_{name}", n, [fa, fb, *extra])
+                info["processes_s"] = wall
+                for r, (_, out) in enumerate(results):
+                    if "(cuda, nccl)" not in out:
+                        raise AssertionError(f"rank {r} is not a cuda/nccl rank:\n{out[-3000:]}")
+                check_ranks(f"nccl_{n}_{name}", results, dirs, single, info)
+                if not extra:
+                    info["rerun"] = {}
+                    rerun_ranks(tmp, f"mesh_{name}", n, [fa, fb], single, info["rerun"])
+        with phase(f"collectives_nccl_{n}", {}) as info:
+            run_collectives(tmp, n, "nccl", fa, fb, info)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(smi.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": n}})
+    return 0
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isfile(os.path.join(here, "ntsynt_tpu_torch", "__init__.py")):
@@ -1168,6 +1540,10 @@ def main() -> int:
             phase_walk(torch, tmp, fa, fb, main_out, main_info, info)
         with phase("sidecars", {}) as info:
             phase_sidecars(tmp, main_out, info)
+        with phase("mesh", {}) as info:
+            phase_mesh(tmp, fa, fb, main_out,
+                       os.path.join(tmp, "filter_Indexlr", "smoke.synteny_blocks.tsv"), info,
+                       kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1186,4 +1562,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        rank, world, port = (int(a) for a in sys.argv[2:5])
+        sys.exit(mesh_worker(rank, world, port, *sys.argv[5:9]))
+    sys.exit(main_cards() if sys.argv[1:] == ["--mesh-cards"] else main())

@@ -3,7 +3,8 @@
 Mirrors the reference driver's surface (bin/ntSynt:43-99) and the JAX
 package's CLI: same flags and divergence->parameter presets, plus
 ``--device {cuda,cpu}``; the whole pipeline runs in-process on one
-torch device instead of shelling out to snakemake.
+torch device (or, with ``--mesh``, on each rank of a process group:
+parallel/multihost.py) instead of shelling out to snakemake.
 """
 
 import argparse
@@ -107,7 +108,8 @@ def build_parser():
     parser.add_argument("--dev", help="Developer mode: verbose logs, extra artifacts", action="store_true")
     parser.add_argument(
         "--mesh",
-        help="Shard over all visible devices (not ported yet: rejected)",
+        help="Shard Bloom-filter build + sketching over all ranks of the process group, "
+        "or this one device when there is no group",
         action="store_true",
     )
     parser.add_argument(
@@ -122,8 +124,6 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     apply_divergence_presets(args, parser)
-    if args.mesh:
-        parser.error("--mesh is not ported to ntsynt_tpu_torch yet")
 
     for w in args.w_rounds:
         if w > args.w:
@@ -185,6 +185,7 @@ def main(argv=None):
         dry_run=args.dry_run,
         device=args.device,
         threads=args.t,
+        use_mesh=args.mesh,
     )
     out = NtSyntPipeline(cfg).run()
     if out:

@@ -58,6 +58,13 @@ class SyntenyParams:
     repeat_filter: str = None
     # torch device of the refinement-round re-sketches (the filter's)
     device: str = "cuda"
+    # a parallel.mesh.Mesh: the refinement re-sketches are sharded over
+    # its ranks (selections equal the single-device sketch's); None: one
+    # device
+    mesh: object = None
+    # multi-process runs: every rank computes the same blocks, only
+    # rank 0 writes the TSV and dot artifacts (parallel/multihost.py)
+    write_output: bool = True
 
     def resolve_collinear_merge(self) -> int:
         """'<num>w' -> num * w, else bp int (bin/ntsynt_synteny.py:37-42)."""
@@ -342,10 +349,18 @@ class SyntenyDetector:
             # excluded from candidacy); 'Filter' re-sketches without it
             # and drops selected minimizers post-hoc via read_minimizers
             sketch_repeat = p.repeat_bf if p.repeat_filter != "Filter" else None
-            sk = sketch_ops.sketch_genome(
-                cond, p.k, new_w, common_bf=p.common_bf, repeat_bf=sketch_repeat,
-                device=p.device,
-            )
+            if p.mesh is not None:
+                from ..parallel import mesh as pmesh
+
+                sk = pmesh.sharded_sketch_genome(
+                    cond, p.k, new_w, mesh=p.mesh, common_bf=p.common_bf,
+                    repeat_bf=sketch_repeat,
+                )
+            else:
+                sk = sketch_ops.sketch_genome(
+                    cond, p.k, new_w, common_bf=p.common_bf, repeat_bf=sketch_repeat,
+                    device=p.device,
+                )
             if p.repeat_filter == "Filter" and p.repeat_bf is not None:
                 sk = sk.subset(~p.repeat_bf.probe_np(sk.canon))
             t_sketch = _time.perf_counter() - t0
@@ -439,11 +454,12 @@ class SyntenyDetector:
                 blocks = self.indel_pass(blocks)
                 blocks = self.min_mx_pass(blocks, 4)
             blocks_sorted = ctx.sorted_blocks(blocks)
-            ctx.write_blocks_tsv(
-                f"{p.prefix}.pre-collinear-merge.synteny_blocks.tsv",
-                blocks_sorted,
-                p.z,
-            )
+            if p.write_output:
+                ctx.write_blocks_tsv(
+                    f"{p.prefix}.pre-collinear-merge.synteny_blocks.tsv",
+                    blocks_sorted,
+                    p.z,
+                )
             if new_w == p.w_rounds[-1]:
                 with _substage("collinear_merge x2"):
                     merged = blk.merge_collinear_blocks(
@@ -455,9 +471,10 @@ class SyntenyDetector:
                     )
                 if p.dev:
                     self.check_non_overlapping(merged)
-                ctx.write_blocks_tsv(
-                    f"{p.prefix}.synteny_blocks.tsv", merged, p.z, verbose=True
-                )
+                if p.write_output:
+                    ctx.write_blocks_tsv(
+                        f"{p.prefix}.synteny_blocks.tsv", merged, p.z, verbose=True
+                    )
             prev_w = new_w
         log("Done extended synteny blocks")
         log(f"Final synteny blocks can be found in: {p.prefix}.synteny_blocks.tsv")
@@ -530,7 +547,7 @@ class SyntenyDetector:
             self.make_minimizer_graph()
         # the reference always emits the graph artifact from
         # make_minimizer_graph (expected-result listing, SURVEY.md §2.4)
-        dot_thread = self.write_dot_async(f"{p.prefix}.mx.dot")
+        dot_thread = self.write_dot_async(f"{p.prefix}.mx.dot") if p.write_output else None
         if p.simplify_graph:
             log("Running graph simplification")
             with _substage("simplify_bubbles"):
@@ -545,19 +562,21 @@ class SyntenyDetector:
         with _substage("indel+minmx"):
             blocks = self.indel_pass(blocks)
             blocks = self.min_mx_pass(blocks, 4)
-        if p.interarrivals:
+        if p.interarrivals and p.write_output:
             self.print_interarrivals(blocks)
         blocks_sorted = self.block_ctx.sorted_blocks(blocks)
         if not blocks_sorted:
             raise RuntimeError(
                 "no paths found. Try adjusting the specified k/w parameters."
             )
-        self.block_ctx.write_blocks_tsv(
-            f"{p.prefix}.synteny_blocks.tsv", blocks_sorted, p.z
-        )
+        if p.write_output:
+            self.block_ctx.write_blocks_tsv(
+                f"{p.prefix}.synteny_blocks.tsv", blocks_sorted, p.z
+            )
         log("Done initial synteny blocks")
 
         self.refine_block_coordinates(blocks)
-        dot_thread.join()
+        if dot_thread is not None:
+            dot_thread.join()
         log("DONE!")
         return f"{p.prefix}.synteny_blocks.tsv"

@@ -79,6 +79,17 @@ class _Stream:
         g = self.genome
         return fio.build_stream(self._src, g.offsets, g.lengths, self.starts, self.total)
 
+    def slice(self, lo: int, hi: int) -> np.ndarray:
+        """Codes [lo, hi) of the stream (code 4 past its end), laid out
+        without the whole stream: a rank's slab (parallel/mesh)."""
+        g = self.genome
+        lo, hi = int(lo), int(hi)
+        a = np.clip(self.starts, lo, hi)
+        b = np.clip(self.starts + g.lengths, lo, hi)
+        keep = b > a
+        return fio.build_stream(self._src, (g.offsets + a - self.starts)[keep], (b - a)[keep],
+                                a[keep] - lo, max(hi - lo, 0))
+
     def legit_windows(self) -> np.ndarray:
         """bool [n_windows_stream]: windows fully inside one contig."""
         k, w = self.k, self.w
@@ -136,10 +147,17 @@ def sketch_genome(genome, k: int, w: int, common_bf=None, repeat_bf=None, device
     """
     if prepared is None:
         prepared = DeviceStream(genome, k, w, resolve_device(device), codes=codes)
-    ds = prepared
-    stream = ds.stream
-    sel, selh = sketch_stream(ds.codes, ds.legit, k, w, common_bf=common_bf,
+    sel, selh = sketch_stream(prepared.codes, prepared.legit, k, w, common_bf=common_bf,
                               repeat_bf=repeat_bf)
+    return finish_sketch(genome, prepared.stream, sel, selh, k, w, common_bf, repeat_bf, codes)
+
+
+def finish_sketch(genome, stream: _Stream, sel: np.ndarray, selh: np.ndarray, k: int, w: int,
+                  common_bf=None, repeat_bf=None, codes: np.ndarray | None = None
+                  ) -> GenomeSketch:
+    """The host epilogue of a sketch: the selected stream positions
+    ``sel`` (sorted, unique) and their hashes ``selh`` mapped to (contig,
+    position), plus the short-contig fallback."""
     cidx, cpos = stream.to_contig_pos(sel)
 
     # short-contig fallback (one window over all k-mers), host-side

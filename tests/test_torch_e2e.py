@@ -6,6 +6,7 @@ the pipeline and the synteny-only entry point (run_core) likewise. Also:
 the port runs with neither jax nor the JAX package loaded."""
 
 import os
+import socket
 import subprocess
 import sys
 
@@ -104,12 +105,17 @@ def test_three_genomes_identical(tmp_path, base_genome, monkeypatch):
     ]
 
 
-def test_cli_rejects_unported_flags_and_missing_cuda(tmp_path, base_genome, monkeypatch):
+def test_cli_rejects_unported_flags_and_missing_cuda(tmp_path, base_genome, monkeypatch, capsys):
+    """Every flag of the JAX CLI is ported (--mesh since the mesh slice,
+    tests/test_torch_multihost.py); a flag neither CLI has is rejected,
+    and the default device raises without CUDA."""
     fa = write_fasta(tmp_path / "a.fa", [("chr1", base_genome[:1000])])
     fb = write_fasta(tmp_path / "b.fa", [("chr1", base_genome[:1000])])
     monkeypatch.chdir(tmp_path)
+    assert torch_main([fa, fb, "-d", "1", "--mesh", "--device", "cpu", "-n"]) == 0
+    assert "synteny:" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        torch_main([fa, fb, "-d", "1", "--mesh", "--device", "cpu"])
+        torch_main([fa, fb, "-d", "1", "--no-such-flag", "--device", "cpu"])
     import torch
 
     if not torch.cuda.is_available():  # the default device is cuda: no quiet fallback
@@ -120,7 +126,9 @@ def test_cli_rejects_unported_flags_and_missing_cuda(tmp_path, base_genome, monk
 def test_port_runs_without_jax(tmp_path, base_genome):
     """In a fresh interpreter, importing the port and running its CLI on
     the CPU (with -t, with and without --filter), its make-bf CLIs,
-    run_core and the sidecar CLIs loads neither jax nor the JAX package,
+    run_core, the sidecar CLIs and the one-process multihost entry (a
+    gloo group of one rank, whose blocks equal the CLI's) loads neither
+    jax nor the JAX package,
     and never opens the JAX package's csrc/*.so: the FASTA reads and the
     chain walk go through the port's own host library."""
     rng = np.random.default_rng(5)
@@ -131,6 +139,10 @@ def test_port_runs_without_jax(tmp_path, base_genome):
     fa = write_fasta(tmp_path / "x.fa", [("chr1", g)])
     fb = write_fasta(tmp_path / "y.fa", [("chr1", m)])
     csrc = os.path.join(REPO, "csrc")
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
     code = (
         "import os, sys\n"
         f"CSRC = {csrc!r}\n"
@@ -165,6 +177,13 @@ def test_port_runs_without_jax(tmp_path, base_genome):
         "rc |= viz.gggenomes_main(['--fai', 'x.fa.fai', 'y.fa.fai', '--blocks',"
         " 'nj.synteny_blocks.tsv', '-p', 'gv', '-l', '1000'])\n"
         "rc |= viz.painting_main(['nj.synteny_blocks.tsv', '--target', 'x.fa', '-o', 'pt.tsv'])\n"
+        "from ntsynt_tpu_torch.parallel import make_mesh, multihost\n"
+        f"rc |= multihost.main(['--coordinator', 'localhost:{port}', '--num-processes', '1',"
+        f" '--process-id', '0', '--', {fa!r}, {fb!r}, '-d', '1', '-w', '100', '--w_rounds',"
+        " '50', '10', '-b', '500', '--indel', '500', '--merge', '3000', '-p', 'mh', '-t', '3',"
+        " '--device', 'cpu'])\n"
+        "assert make_mesh(device='cpu').size == 1  # the group is gone\n"
+        "assert open('mh.synteny_blocks.tsv').read() == open('nj.synteny_blocks.tsv').read()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ntsynt_tpu' or m.startswith('ntsynt_tpu.'))\n"
         "maps = open('/proc/self/maps').read()\n"
@@ -180,6 +199,7 @@ def test_port_runs_without_jax(tmp_path, base_genome):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert "Number_blocks\t" in proc.stdout
+    assert "[multihost] process 0/1: 1 local / 1 global devices (cpu, gloo)" in proc.stdout
     for f in ("nj.synteny_blocks.tsv", "nf.synteny_blocks.tsv", "nf.repeat.bf", "c.bf", "r.bf",
               "rc.synteny_blocks.tsv", "gv.links.tsv", "gv.sequence_lengths.tsv", "pt.tsv"):
         assert (tmp_path / f).exists(), f
