@@ -60,12 +60,29 @@ Phases, each printing one JSON line with its elapsed seconds:
      the card under NCCL (what NCCL says is printed; expected to be
      refused, and a hang or any other failure fails), then under gloo on
      the default path and with --filter Indexlr, must write the
-     single-device runs' blocks from rank 0 and nothing from rank 1,
-     every rank launching K1-K4 on the card; the default gloo run again
+     single-device runs' blocks from rank 0 and nothing from rank 1
+     (for --filter Indexlr, the single-device CLI reusing a repeat filter
+     walked at the mesh's 2^21-k-mer segment), every rank launching K1-K4
+     on the card; the default gloo run again
      in the same directories, where rank 0 reuses its sketch TSVs; two
      ranks (``chip_smoke.py --mesh-worker``) build the common filter,
      which must equal the single-device cascade's words, and time
-     allreduce_or and _allreduce_dup on a 2^32-bit filter.
+     allreduce_or and _allreduce_dup on a 2^32-bit filter;
+ 14. gigabase: bench.py's three 1 Gbp genomes (seed 20260817, 0.1% SNPs
+     in each copy, a 500 kb inversion at 0.4 L in genome B) written once
+     as FASTA (the disk's free bytes recorded first): (a) the default
+     CLI in a process of its own (``chip_smoke.py --cli-worker``) must
+     find the inversion, name all three genomes in its blocks and launch
+     K1-K4 as often as 3 Gbp in 2^26-k-mer segments gives, and prints
+     its stage seconds, host RSS and device peaks; (b) the same run in
+     this process with the cascade's stream budget patched below the
+     projection, so that every stream is released and built again at its
+     sketch, must write run a's blocks byte for byte; (c) a genome of
+     two 1.1 Gbp contigs and a 4 Mbp tail past stream offset 2^31,
+     sketched on the card after the cascade over it and a copy with
+     0.1% SNPs, must give on the tail exactly the CPU port's sketch of
+     the tail alone; (d) the mesh at D = 1 must give the card's sketch of
+     that genome.
 Each path's kernel counts are set to 0 just before it and read just
 after (a mesh rank's, which start at 0 in its own process, at its end). Then the kernel table as one JSON line, nvidia-smi's "name, power
 limit" line, and last {"ok": true, "device": {...}}. Any failed check
@@ -97,6 +114,7 @@ PATH_KERNELS = {
     "sweep": ("nthash", "winmin", "compact", "bf_sweep"),
     "sweep_build": ("nthash", "bf_sweep"),
     "filter": ("nthash", "winmin", "compact", "bf_insert"),
+    "sketch": ("nthash", "winmin", "compact"),  # a sketch alone (the gigabase mesh check)
 }
 
 
@@ -277,13 +295,16 @@ def read_stages(path: str) -> dict:
         next(fin)
         for line in fin:
             p = line.rstrip("\n").split("\t")
-            stages[p[0]] = {"s": float(p[1]), "cuda_peak_so_far_mb": float(p[3])}
+            stages[p[0]] = {"s": float(p[1]), "peak_rss_mb": float(p[2]),
+                            "cuda_peak_so_far_mb": float(p[3])}
     return stages
 
 
-def find_inversion(rows, inv_start: int, inv_end: int) -> dict:
-    hit = [r for r in rows if r["ori"] == "-" and abs(r["start"] - inv_start) < 5000
-           and abs(r["end"] - inv_end) < 5000]
+def find_inversion(rows, inv_start: int, inv_end: int, tol: int = 5000) -> dict:
+    """The first '-' block whose ends lie within tol of the inversion's
+    (5 kb for the 50 kb inversion)."""
+    hit = [r for r in rows if r["ori"] == "-" and abs(r["start"] - inv_start) < tol
+           and abs(r["end"] - inv_end) < tol]
     if not hit:
         raise AssertionError(f"no '-' block covers the inversion [{inv_start}, {inv_end}): {rows}")
     return {k: hit[0][k] for k in ("asm", "start", "end", "ori", "nmx")}
@@ -599,6 +620,8 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     gigabase_filter = dict(
         route=bloom.insert_route(n, gbits),
         ms=device_ms(lambda: bloom.insert_words(gwords, canon, valid, gbits), 5),
+        wrapper_ms=cuda_time_ms(lambda: bloom.insert_words(gwords, canon, valid, gbits), 5),
+        plain_ms=cuda_time_ms(lambda: bloom.insert_words_plain(gwords, canon, valid, gbits), 2),
         direct_ms=device_ms(lambda: bloom.insert_direct(gwords, canon, valid, gbits), 5),
         bound_ms=(9 * n + 8 * g_hits) / HBM_BYTES_PER_S * 1e3,
         shape=f"{n} keys into 2^{gbits} bits ({g_hits} distinct words hit)",
@@ -1106,6 +1129,7 @@ def phase_sidecars(tmp: str, blocks_tsv: str, info: dict) -> None:
 
 MESH_KERNELS = PATH_KERNELS["main"]
 LAUNCH_LINE = re.compile(r"\[multihost\] process (\d+) launches (\{.*\})")
+PEAK_LINE = re.compile(r"\[multihost\] process (\d+) max_memory_allocated (\d+)")
 FILTER_WORDS_LOG2 = 27  # 2^32 bits: the common filter at 100 Mbp, 512 MiB of int32 words
 
 
@@ -1176,7 +1200,7 @@ def check_ranks(name: str, results, dirs, want_blocks: str, info: dict) -> None:
     """Every rank exited 0 and launched every kernel of the path on the
     card; rank 0's blocks equal want_blocks'; the other ranks wrote no
     file."""
-    launches = []
+    launches, peaks = [], []
     for r, (rc, out) in enumerate(results):
         if rc != 0:
             state = "hung and was killed" if rc is None else f"exited {rc}"
@@ -1188,6 +1212,9 @@ def check_ranks(name: str, results, dirs, want_blocks: str, info: dict) -> None:
             if m[0][kernel] <= 0:
                 raise AssertionError(f"mesh {name}: rank {r} never launched {kernel}")
         launches.append(m[0])
+        peak = [int(b) for i, b in PEAK_LINE.findall(out) if int(i) == r]
+        if peak:
+            peaks.append(peak[0])
         if r and os.listdir(dirs[r]):
             raise AssertionError(f"mesh {name}: rank {r} wrote {os.listdir(dirs[r])}")
     with open(os.path.join(dirs[0], "smoke.synteny_blocks.tsv"), "rb") as f1, \
@@ -1195,6 +1222,8 @@ def check_ranks(name: str, results, dirs, want_blocks: str, info: dict) -> None:
         if f1.read() != f2.read():
             raise AssertionError(f"mesh {name}: rank 0's blocks differ from the single-device run's")
     info["launches_per_rank"] = launches
+    if peaks:
+        info["max_memory_allocated_per_rank"] = peaks
     info["rank0_stages_s"] = {k: v["s"] for k, v in
                               read_stages(os.path.join(dirs[0], "smoke.time.tsv")).items()}
     info["blocks_equal_single"] = True
@@ -1355,13 +1384,43 @@ def run_collectives(tmp: str, world: int, backend: str, fa: str, fb: str, info: 
             "allreduce_dup": {"to_host": b + 2 * b // d, "to_card": 3 * b}}
 
 
-def phase_mesh(tmp: str, fa: str, fb: str, main_out: str, indexlr_out: str, info: dict,
+MESH_REPEAT_SEG = 1 << 21  # the mesh's repeat-walk segment cap (parallel/mesh.py)
+
+
+def walk_at_mesh_segment(torch, dev, tmp: str, name: str, fastas) -> str:
+    """The blocks a mesh run with --filter Indexlr must write: the
+    single-device CLI with the repeat filter of the single-device walk at
+    the mesh's segment, bf_build.build_repeat_bf(..., chunk=2^21), saved
+    byte-complete into the run's directory, where the CLI reuses it (its
+    own walk is at 2^20). At the 2 x 100 Mbp shapes every rank's slab is
+    whole 2^21-k-mer segments, so the mesh's filter is this one. Returns
+    the blocks TSV path."""
+    from ntsynt_tpu_torch.io.fasta import read_fasta
+    from ntsynt_tpu_torch.ops import bf_build
+
+    work = os.path.join(tmp, name)
+    os.makedirs(work)
+    path = os.path.join(work, "smoke.repeat.bf")
+    rep = bf_build.build_repeat_bf([read_fasta(f) for f in fastas], 24, chunk=MESH_REPEAT_SEG,
+                                   device=dev)
+    rep.save(path)
+    del rep
+    torch.cuda.empty_cache()
+    mtime = os.path.getmtime(path)
+    out = run_cli(work, [*fastas, "--filter", "Indexlr", "-d", "1", "-p", "smoke"])
+    if os.path.getmtime(path) != mtime:
+        raise AssertionError(f"{name}: the CLI rebuilt the repeat filter instead of reusing it")
+    return out
+
+
+def phase_mesh(torch, dev, tmp: str, fa: str, fb: str, main_out: str, info: dict,
                kernels: dict) -> None:
     """The mesh path (parallel/mesh.py, parallel/multihost.py) on the one
     card, each rank a process of its own with its own timeout:
     a one-rank NCCL group through the multihost CLI; two ranks sharing the
     card under NCCL (expected to be refused; what NCCL says is printed),
-    then under gloo on the default path and with --filter Indexlr, each
+    then under gloo on the default path and with --filter Indexlr (held
+    to walk_at_mesh_segment's blocks), each
     rank's kernels on the card, and the default run again in its
     directories (a rerun that reuses rank 0's sketch TSVs); the two-rank
     common filter against the
@@ -1390,6 +1449,9 @@ def phase_mesh(tmp: str, fa: str, fb: str, main_out: str, indexlr_out: str, info
             "said": said[-6:]}
         print("mesh: NCCL refused two ranks on one card:", *said[-6:], sep="\n  ", flush=True)
 
+    t0 = time.perf_counter()
+    indexlr_out = walk_at_mesh_segment(torch, dev, tmp, "single_indexlr_seg21", [fa, fb])
+    info["single_indexlr_at_mesh_segment_s"] = round(time.perf_counter() - t0, 3)
     # each run's timeout is about seven times its time on the card (PERF.md §5)
     for name, args, want, timeout in (
             ("gloo_2", [fa, fb], main_out, 180),
@@ -1406,13 +1468,372 @@ def phase_mesh(tmp: str, fa: str, fb: str, main_out: str, indexlr_out: str, info
         kernels[name]["mesh_launches"] = [row[name] for row in info["gloo_2"]["launches_per_rank"]]
 
 
-def main_cards() -> int:
+# ---------------------------------------------------------------------------
+# the gigabase phase: bench.py's 3 x 1 Gbp genomes through the CLI, the
+# same run with the cascade's streams released, and a stream past 2^31
+# ---------------------------------------------------------------------------
+
+GIGA_SEED = 20260817  # bench.py's
+GIGA_BP = 1_000_000_000
+GIGA_GENOMES = 3
+DIVERGENCE = 0.001
+GIGA_INV_START = int(GIGA_BP * 0.4)
+GIGA_INV_BP = GIGA_BP // 2000  # 500 kb
+GIGA_INV_TOL = 50_000  # find_inversion's 5 kb for 50 kb, scaled to 500 kb
+# check c: two 1.1 Gbp contigs, then a 4 Mbp tail past stream offset 2^31
+BIG_CONTIG_BP = 1_100_000_000
+TAIL_BP = 4_000_000
+TAIL_PAST = 1 << 31  # where int32 stream offsets wrap
+SEG = 1 << 26  # k-mers (windows) a cascade (sketch) segment: ops/bf_build, ops/sketch_device
+
+
+def _write_fasta(path: str, g: np.ndarray, step: int = 80):
+    """bench.py's _write_fasta (copied: bench.py imports jax)."""
+    dec = np.frombuffer(b"ACGT", dtype=np.uint8)
+    raw = dec[g]
+    pad = (-len(raw)) % step
+    body = np.full(((len(raw) + pad) // step, step + 1), ord("\n"), dtype=np.uint8)
+    body[:, :step] = np.concatenate([raw, np.full(pad, ord("A"), np.uint8)]).reshape(
+        -1, step
+    )
+    with open(path, "wb") as f:
+        f.write(b">chr1\n")
+        f.write(body.tobytes())
+
+
+def _gen_genomes(tmp, n_genomes: int, length: int):
+    """bench.py's _gen_genomes (copied: bench.py imports jax): genome A
+    and n-1 copies with 0.1% SNPs; copy 1 also carries a length/2000
+    inversion at 0.4 L."""
+    rng = np.random.default_rng(GIGA_SEED)
+    base = rng.integers(0, 4, length, dtype=np.uint8)
+    paths = []
+    p0 = os.path.join(tmp, "benchA.fa")
+    _write_fasta(p0, base)
+    paths.append(p0)
+    inv_len = max(length // 2000, 1000)
+    for gi in range(1, n_genomes):
+        mut = base.copy()
+        n_snp = int(rng.binomial(length, DIVERGENCE))
+        pos = rng.integers(0, length, n_snp)
+        mut[pos] = (mut[pos] + rng.integers(1, 4, n_snp, dtype=np.uint8)) % 4
+        if gi == 1:
+            s = int(length * 0.4)
+            e = s + inv_len
+            mut[s:e] = mut[s:e][::-1] ^ 3
+        p = os.path.join(tmp, f"bench{chr(ord('B') + gi - 1)}.fa")
+        _write_fasta(p, mut)
+        paths.append(p)
+        del mut, pos
+    del base
+    return paths
+
+
+def segment_launches(contig_bp: int, k: int, w: int, bits_log2: int) -> dict:
+    """The launch sizes (as _kernels.SHAPES records them) of one
+    one-contig genome's cascade level and main sketch on the default
+    path: its DeviceStream is the contig and w + k N codes; the cascade
+    hashes and inserts its k-mers, the sketch hashes, scans and compacts
+    its windows, SEG a segment."""
+    total = contig_bp + w + k
+    n_kmers, n_win = total - k + 1, total - (w + k - 1) + 1
+    out = {"nthash": [], "winmin": [], "compact": [], "bf_insert": []}
+    for s in range(0, n_kmers, SEG):
+        m = min(SEG, n_kmers - s)
+        out["nthash"].append((m, k))
+        out["bf_insert"].append((m, bits_log2))
+    for s in range(0, n_win, SEG):
+        m = min(SEG, n_win - s)
+        out["nthash"].append((m + w - 1, k))
+        out["winmin"].append((m + w - 1, w))
+        out["compact"].append((m,))
+    return out
+
+
+def check_gigabase_launches(launches: dict, shapes: dict, n_genomes: int, contig_bp: int,
+                            bits_log2: int, w: int = 1000) -> dict:
+    """The 3 x 1 Gbp run's K1-K4 launches against segment_launches: K4's
+    and K2's at the main w are exactly the segments'; K1 and K3 launch
+    once more for each refinement-round K2 launch (w other than the
+    main one), whose sizes depend on the blocks. Returns the expected
+    counts."""
+    from collections import Counter
+
+    want = {name: Counter() for name in ("nthash", "winmin", "compact", "bf_insert")}
+    for _ in range(n_genomes):
+        for name, sizes in segment_launches(contig_bp, 24, w, bits_log2).items():
+            want[name].update(sizes)
+    got = {name: Counter(tuple(x) for x in shapes[name]) for name in want}
+    main_k2 = Counter({s: c for s, c in got["winmin"].items() if s[1] == w})
+    refine = sum(got["winmin"].values()) - sum(main_k2.values())
+    if got["bf_insert"] != want["bf_insert"] or main_k2 != want["winmin"]:
+        raise AssertionError(f"gigabase: K4 launches {dict(got['bf_insert'])} and K2 launches "
+                             f"at w={w} {dict(main_k2)}, want {dict(want['bf_insert'])} and "
+                             f"{dict(want['winmin'])}")
+    for name in ("nthash", "compact"):
+        missing = want[name] - got[name]
+        extra = sum(got[name].values()) - sum(want[name].values())
+        if missing or extra != refine:
+            raise AssertionError(f"gigabase: {name} lacks {dict(missing)} or launched {extra} "
+                                 f"times beyond the segments, want {refine} (refinement)")
+    expected = {name: sum(want[name].values()) for name in want}
+    for name in ("nthash", "winmin", "compact"):
+        expected[name] += refine
+    if {name: launches[name] for name in expected} != expected:
+        raise AssertionError(f"gigabase: launches {launches}, want {expected}")
+    return dict(expected, refinement_k2_launches=refine)
+
+
+def run_cli_worker(work: str, args, timeout: int) -> dict:
+    """The port's CLI in a process of its own (``chip_smoke.py
+    --cli-worker``), from work: its kernel launches and their sizes and
+    torch.cuda.max_memory_allocated over the run."""
+    out = os.path.join(work, "worker.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-worker", out, "--",
+                           *args], cwd=work, env=subprocess_env(), capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI worker exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(out) as fin:
+        return json.load(fin)
+
+
+def cli_worker(out: str, args) -> int:
+    """``chip_smoke.py --cli-worker OUT -- ARGS``: the port's CLI on ARGS
+    with every kernel count at 0 and the device peak reset; writes the
+    launches, their sizes and the peak to OUT."""
+    import torch
+
+    from ntsynt_tpu_torch.cli import main as cli_main
+    from ntsynt_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rc = cli_main(args)
+    torch.cuda.synchronize()
+    with open(out, "w") as fout:
+        json.dump({"rc": rc, "launches": dict(_kernels.LAUNCHES),
+                   "shapes": {k: list(v) for k, v in _kernels.SHAPES.items()},
+                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}, fout)
+    return rc
+
+
+def gigabase_run_info(work: str, info: dict) -> None:
+    """Stage seconds, host RSS and device peak from the run's time.tsv,
+    the assemblies its blocks name, and the planted inversion's block."""
+    info["stages"] = read_stages(os.path.join(work, "smoke.time.tsv"))
+    rows = read_blocks(os.path.join(work, "smoke.synteny_blocks.tsv"))
+    info["blocks"] = len({r["id"] for r in rows})
+    info["block_assemblies"] = sorted({r["asm"] for r in rows})
+    info["inversion_block"] = find_inversion(rows, GIGA_INV_START, GIGA_INV_START + GIGA_INV_BP,
+                                             tol=GIGA_INV_TOL)
+
+
+def release_forced_run(torch, dev, work: str, paths, num_bits: int, info: dict) -> None:
+    """Run a's CLI in this process (NtSyntPipeline(cfg).run() on the same
+    config), from work, with stream_budget patched
+    one byte below release_plan's projection, so that the plan releases
+    the stream of every genome above the line after its cascade level
+    and the sketch builds it again. Records the streams built and the
+    releases, in order."""
+    from ntsynt_tpu_torch.core import pipeline as tpipe
+    from ntsynt_tpu_torch.ops import bf_build
+    from ntsynt_tpu_torch.ops import sketch as sketch_ops
+
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in paths}
+    projection = 2 * (num_bits // 8) + sum(int(b * tpipe.STREAM_BYTES_PER_BASE)
+                                           for b in sizes.values())
+    info["projection_bytes"] = projection
+    info["card_budget_bytes"] = tpipe.stream_budget(dev)
+    info["card_would_release"] = sorted(tpipe.release_plan(sizes, num_bits,
+                                                           info["card_budget_bytes"]))
+    events = []
+    stream_cls, cascade, budget = (sketch_ops.DeviceStream, bf_build.build_common_bf_from_device,
+                                   tpipe.stream_budget)
+
+    class RecordingStream(stream_cls):
+        def __init__(self, genome, *a, **kw):
+            events.append(("stream", genome.name))
+            super().__init__(genome, *a, **kw)
+
+    def recording_cascade(*a, release=None, **kw):
+        def rel(name):
+            events.append(("release", name))
+            release(name)
+        return cascade(*a, release=rel if release else None, **kw)
+
+    sketch_ops.DeviceStream = RecordingStream
+    bf_build.build_common_bf_from_device = recording_cascade
+    tpipe.stream_budget = lambda device: projection - 1
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, info["launches"], _ = drive_path(torch, "main", lambda: run_cli(
+            work, [*paths, "-d", "1", "-p", "smoke", "--benchmark"]))
+        info["run_s"] = round(time.perf_counter() - t0, 3)
+        info["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated() - base
+        info["allocated_before_bytes"] = base
+    finally:
+        sketch_ops.DeviceStream, bf_build.build_common_bf_from_device = stream_cls, cascade
+        tpipe.stream_budget = budget
+    names = sorted(sizes)
+    want = []
+    for n in names:
+        want += [("stream", n), ("release", n)]
+    want += [("stream", n) for n in names]
+    if events[: len(want)] != want:
+        raise AssertionError(f"gigabase b: streams and releases {events[:12]}, want {want}")
+    info["released_and_rebuilt"] = names
+
+
+def packed_genome(name: str, codes: np.ndarray, lengths):
+    """A PackedGenome of in-memory contigs laid end to end in codes."""
+    from ntsynt_tpu_torch.io.fasta import PackedGenome
+
+    lengths = np.asarray(lengths, dtype=np.int64)
+    zeros = np.zeros(len(lengths), dtype=np.int64)
+    return PackedGenome(path=name, name=name, contig_names=[f"c{i}" for i in range(len(lengths))],
+                        lengths=lengths,
+                        offsets=np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64),
+                        codes=codes, raw=None, fai_offsets=zeros, fai_linebases=zeros,
+                        fai_linewidth=zeros)
+
+
+def past_2_31_checks(torch, dev, info: dict) -> None:
+    """Checks c and d: genome G (two 1.1 Gbp contigs and a 4 Mbp tail
+    starting past stream offset 2^31) and H, G with 0.1% SNPs. The card
+    builds the cascade over [G, H] and sketches G; its minimizers on the
+    tail must be the CPU port's sketch of the tail alone probed against a
+    CPU copy of the filter's words (minimizers never cross a contig).
+    The mesh at D = 1 must give the card's sketch of G."""
+    from ntsynt_tpu_torch.ops import bf_build, bloom
+    from ntsynt_tpu_torch.ops import sketch as sketch_ops
+    from ntsynt_tpu_torch.parallel import mesh as pmesh
+
+    k, w = 24, 1000
+    lengths = [BIG_CONTIG_BP, BIG_CONTIG_BP, TAIL_BP]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(GIGA_SEED + 1)
+    g_codes = rng.integers(0, 4, sum(lengths), dtype=np.uint8)
+    h_codes = g_codes.copy()
+    n_snp = int(rng.binomial(len(h_codes), DIVERGENCE))
+    pos = rng.integers(0, len(h_codes), n_snp)
+    h_codes[pos] = (h_codes[pos] + rng.integers(1, 4, n_snp, dtype=np.uint8)) % 4
+    del pos
+    g, h = packed_genome("G", g_codes, lengths), packed_genome("H", h_codes, lengths)
+    info["generate_s"] = round(time.perf_counter() - t0, 3)
+    stream = sketch_ops._Stream(g, k, w)
+    tail_start = int(stream.starts[2])
+    if tail_start <= TAIL_PAST:
+        raise AssertionError(f"gigabase c: the tail starts at {tail_start}, not past {TAIL_PAST}")
+    info.update(stream_length=stream.total, tail_start=tail_start)
+
+    def on_card():
+        bf = bf_build.build_common_bf([g, h], k, device=dev)
+        return bf, sketch_ops.sketch_genome(g, k, w, common_bf=bf, device=dev)
+
+    t0 = time.perf_counter()
+    (bf, sk), info["launches"], _ = drive_path(torch, "main", on_card)
+    info["card_s"] = round(time.perf_counter() - t0, 3)
+    del h, h_codes
+    info["num_bits"] = bf.num_bits
+    on_tail = sk.contig_idx == 2
+    info["minimizers"] = int(sk.n_minimizers)
+    info["tail_minimizers"] = int(on_tail.sum())
+    if info["tail_minimizers"] == 0:
+        raise AssertionError("gigabase c: no minimizer on the tail contig")
+
+    t0 = time.perf_counter()
+    tail = packed_genome("T", g_codes[int(g.offsets[2]):], [TAIL_BP])
+    host_bf = bloom.BloomFilter(bf.num_bits, k, words=bf.words.cpu())
+    ref = sketch_ops.sketch_genome(tail, k, w, common_bf=host_bf, device="cpu")
+    del host_bf
+    info["cpu_tail_s"] = round(time.perf_counter() - t0, 3)
+    for field in ("positions", "hashes"):
+        got, want = getattr(sk, field)[on_tail], getattr(ref, field)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"gigabase c: the card's tail {field} differ from the CPU's "
+                                 f"({len(got)} vs {len(want)} minimizers)")
+    info["tail_equal_cpu"] = True
+
+    t0 = time.perf_counter()
+    skm, info["mesh_launches"], _ = drive_path(torch, "sketch", lambda: pmesh.sharded_sketch_genome(
+        g, k, w, mesh=pmesh.make_mesh(device=dev), common_bf=bf))
+    info["mesh_s"] = round(time.perf_counter() - t0, 3)
+    for field in ("contig_idx", "positions", "hashes"):
+        if not np.array_equal(getattr(skm, field), getattr(sk, field)):
+            raise AssertionError(f"gigabase d: the D = 1 mesh sketch's {field} differ from "
+                                 "the single-device sketch's")
+    info["mesh_d1_equal_single"] = True
+    del bf, sk, skm, g, g_codes
+    torch.cuda.empty_cache()
+
+
+def phase_gigabase(torch, dev, tmp: str, info: dict, kernels: dict) -> None:
+    """Checks a-d (module docstring, phase 14)."""
+    giga = os.path.join(tmp, "giga")
+    os.makedirs(giga)
+    info["disk_free_bytes_at_start"] = shutil.disk_usage(giga).free
+    t0 = time.perf_counter()
+    paths = _gen_genomes(giga, GIGA_GENOMES, GIGA_BP)
+    info["generate_write_s"] = round(time.perf_counter() - t0, 3)
+    info["fasta_bytes"] = [os.path.getsize(p) for p in paths]
+
+    # a: the default CLI, a process of its own
+    work = os.path.join(giga, "cli")
+    os.makedirs(work)
+    a = info["a_cli"] = {}
+    t0 = time.perf_counter()
+    res = run_cli_worker(work, [*paths, "-d", "1", "-p", "smoke", "--benchmark"], timeout=600)
+    a["process_s"] = round(time.perf_counter() - t0, 3)
+    a["max_memory_allocated_bytes"] = res["max_memory_allocated_bytes"]
+    a["launches"] = res["launches"]
+    for kernel in PATH_KERNELS["main"]:
+        if res["launches"][kernel] <= 0:
+            raise AssertionError(f"gigabase a: kernel {kernel} was not launched")
+    with open(os.path.join(work, "smoke.common.bf")) as fin:
+        num_bits = json.load(fin)["num_bits"]  # the stub's header
+    a["num_bits"] = num_bits
+    a["expected_launches"] = check_gigabase_launches(
+        res["launches"], res["shapes"], GIGA_GENOMES, GIGA_BP, num_bits.bit_length() - 1)
+    gigabase_run_info(work, a)
+    if a["block_assemblies"] != sorted(os.path.basename(p) for p in paths):
+        raise AssertionError(f"gigabase a: blocks name {a['block_assemblies']}")
+    for name in kernels:
+        kernels[name]["gigabase_launches"] = res["launches"][name]
+
+    # b: the same genomes in this process, every stream released
+    work_b = os.path.join(giga, "released")
+    os.makedirs(work_b)
+    b = info["b_release_forced"] = {}
+    release_forced_run(torch, dev, work_b, paths, num_bits, b)
+    gigabase_run_info(work_b, b)
+    with open(os.path.join(work, "smoke.synteny_blocks.tsv"), "rb") as f1, \
+            open(os.path.join(work_b, "smoke.synteny_blocks.tsv"), "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("gigabase b: the blocks differ from run a's")
+    b["blocks_equal_a"] = True
+    torch.cuda.empty_cache()
+    info["peak_device_bytes"] = {"a": a["max_memory_allocated_bytes"],
+                                 "b": b["max_memory_allocated_bytes"]}
+    shutil.rmtree(giga, ignore_errors=True)
+
+    # c, d: a stream past 2^31 bases, in memory
+    past_2_31_checks(torch, dev, info.setdefault("c_d_past_2_31", {}))
+
+
+def main_cards(gigabase: bool = False) -> int:
     """``python3 chip_smoke.py --mesh-cards``, on a machine with several
     cards: the mesh path under NCCL, one rank per visible card, on the
-    2 x 100 Mbp pair, default and --filter Indexlr, against the
-    single-device CLI on card 0, and the default run again in its
-    directories (rank 0 reuses its sketch TSVs); then the collectives at
-    as many ranks."""
+    2 x 100 Mbp pair, default and --filter Indexlr (held to
+    walk_at_mesh_segment's blocks), against the single-device CLI on card
+    0, and the default run again in its directories (rank 0 reuses its
+    sketch TSVs); then the collectives at as many ranks. With
+    ``--gigabase``, instead: the default mesh run on the gigabase phase's
+    3 x 1 Gbp genomes against the single-device CLI in a process of its
+    own, with each rank's peak device memory."""
     here = os.path.dirname(os.path.abspath(__file__))
     import torch
 
@@ -1432,13 +1853,21 @@ def main_cards() -> int:
     _kernels.build_host()
     tmp = tempfile.mkdtemp(prefix="ntsynt_cards_")
     try:
+        if gigabase:
+            with phase(f"mesh_nccl_{n}_gigabase", {}) as info:
+                mesh_cards_gigabase(tmp, n, info)
+            return finish_cards(smi, torch, n)
         fa, fb = make_pair(tmp, GENOME_BP, INV_START, INV_BP, 0.001, SEED)
         for name, extra in (("default", []), ("indexlr", ["--filter", "Indexlr"])):
             with phase(f"mesh_nccl_{n}_{name}", {}) as info:
-                work = os.path.join(tmp, f"single_{name}")
-                os.makedirs(work)
                 t0 = time.perf_counter()
-                single = run_cli(work, [fa, fb, *extra, "-d", "1", "-p", "smoke"])
+                if extra:
+                    single = walk_at_mesh_segment(torch, torch.device("cuda", 0), tmp,
+                                                  f"single_{name}", [fa, fb])
+                else:
+                    work = os.path.join(tmp, f"single_{name}")
+                    os.makedirs(work)
+                    single = run_cli(work, [fa, fb, "-d", "1", "-p", "smoke"])
                 info["single_device_cli_s"] = round(time.perf_counter() - t0, 3)
                 results, dirs, wall = multihost_run(tmp, f"mesh_{name}", n, [fa, fb, *extra])
                 info["processes_s"] = wall
@@ -1453,10 +1882,34 @@ def main_cards() -> int:
             run_collectives(tmp, n, "nccl", fa, fb, info)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return finish_cards(smi, torch, n)
+
+
+def finish_cards(smi: str, torch, n: int) -> int:
     print(smi.strip().splitlines()[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": n}})
     return 0
+
+
+def mesh_cards_gigabase(tmp: str, n: int, info: dict) -> None:
+    """The default mesh run, one NCCL rank per card, on the 3 x 1 Gbp
+    genomes: rank 0 writes the single-device CLI's blocks, the other
+    ranks nothing; each rank's peak device memory and launches."""
+    t0 = time.perf_counter()
+    paths = _gen_genomes(tmp, GIGA_GENOMES, GIGA_BP)
+    info["generate_write_s"] = round(time.perf_counter() - t0, 3)
+    work = os.path.join(tmp, "single")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    res = run_cli_worker(work, [*paths, "-d", "1", "-p", "smoke", "--benchmark"], timeout=600)
+    info["single_device_process_s"] = round(time.perf_counter() - t0, 3)
+    info["single_device_max_memory_allocated_bytes"] = res["max_memory_allocated_bytes"]
+    info["single_device_stages"] = read_stages(os.path.join(work, "smoke.time.tsv"))
+    results, dirs, wall = multihost_run(tmp, "mesh_gigabase", n, paths, timeout=900)
+    info["processes_s"] = wall
+    check_ranks(f"nccl_{n}_gigabase", results, dirs, os.path.join(work, "smoke.synteny_blocks.tsv"),
+                info)
 
 
 def main() -> int:
@@ -1541,9 +1994,9 @@ def main() -> int:
         with phase("sidecars", {}) as info:
             phase_sidecars(tmp, main_out, info)
         with phase("mesh", {}) as info:
-            phase_mesh(tmp, fa, fb, main_out,
-                       os.path.join(tmp, "filter_Indexlr", "smoke.synteny_blocks.tsv"), info,
-                       kernels)
+            phase_mesh(torch, dev, tmp, fa, fb, main_out, info, kernels)
+        with phase("gigabase", {}) as info:
+            phase_gigabase(torch, dev, tmp, info, kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1566,4 +2019,9 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         rank, world, port = (int(a) for a in sys.argv[2:5])
         sys.exit(mesh_worker(rank, world, port, *sys.argv[5:9]))
-    sys.exit(main_cards() if sys.argv[1:] == ["--mesh-cards"] else main())
+    if sys.argv[1:2] == ["--cli-worker"] and sys.argv[3:4] == ["--"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(cli_worker(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--mesh-cards"] and sys.argv[2:] in ([], ["--gigabase"]):
+        sys.exit(main_cards(gigabase=sys.argv[2:] == ["--gigabase"]))
+    sys.exit(main())

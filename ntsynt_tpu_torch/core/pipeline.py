@@ -17,14 +17,17 @@ everything. A .bf is a resume stub unless ``bf_artifact="full"``.
 Per-stage wall-clock is recorded and written to <prefix>.time.tsv under
 --benchmark.
 
-Each genome's code stream is uploaded to the device once and serves
-both the Bloom-filter cascade and the sketch. With ``use_mesh`` the
-filters and the sketches (the refinement rounds' too) go through
-parallel/mesh instead: each rank of the process group builds and
-uploads only its own slab of each stream. Every rank computes the same
-blocks; ranks other than 0 read and write no artifact: rank 0 decides
-every reuse and sends what it reuses to the other ranks, so all ranks
-join the same collectives.
+Each genome's code stream is laid out and uploaded to the device when
+its cascade level starts, and serves both the Bloom-filter cascade and
+the sketch; when the cascade's levels and every stream would not fit on
+the card (``release_plan``), the streams of the large genomes are
+dropped after their levels and built again at their sketches. With
+``use_mesh`` the filters and the sketches (the refinement rounds' too)
+go through parallel/mesh instead: each rank of the process group builds
+and uploads only its own slab of each stream. Every rank computes the
+same blocks; ranks other than 0 read and write no artifact: rank 0
+decides every reuse and sends what it reuses to the other ranks, so all
+ranks join the same collectives.
 """
 
 from dataclasses import dataclass, replace
@@ -32,6 +35,7 @@ import json
 import os
 import threading
 
+import torch
 import torch.distributed as dist
 
 from .. import resolve_device
@@ -70,6 +74,52 @@ def _write_bf_stub(path: str, bf, cfg) -> None:
     with open(path, "w") as fout:
         json.dump(header, fout)
         fout.write("\n")
+
+
+# The stream-release rule of the common-filter cascade: the JAX
+# pipeline's (ntsynt_tpu/core/pipeline.py, make_common_bf) with the
+# port's numbers. The projected residency is two cascade levels plus
+# every genome's DeviceStream, a genome's file size standing in for its
+# bases (about 1.01 a base with line breaks) so that unread genomes stay
+# unread. A DeviceStream holds the uint8 code stream and the bool
+# legit-window mask, one byte a base each: 2.0 bytes a base (the JAX
+# stream keeps 1-bit legit words: 1.12). When the projection exceeds the
+# budget, the streams of the genomes above the JAX rule's 505 MB line
+# are released as their level is done and rebuilt at their sketch (a
+# second layout and upload); otherwise every stream stays.
+STREAM_BYTES_PER_BASE = 2.0
+RELEASE_LINE_BYTES = 505_000_000
+# The budget is the card's free memory (the driver's free bytes plus
+# what torch's allocator holds unused) less the sketch's per-segment
+# temporaries, about 3 GB at SEG_WINDOWS = 2^26 windows (int64 key,
+# canon, argmin and min, the validity and probe masks: about 46 B a
+# window, ops/sketch_device.py; the cascade's hash outputs, 17 B a
+# k-mer, fit inside them), and a margin of 4 GiB for K4's binning
+# scratch (8 B a key: 512 MiB at 2^26 keys) and the allocator's
+# fragmentation. The JAX rule's 10.5 GB is two thirds of a 16 GB TPU
+# chip and does not carry over.
+SKETCH_TEMP_BYTES = 46 << 26
+RELEASE_MARGIN_BYTES = 4 << 30
+
+
+def release_plan(sizes: dict, num_bits: int, budget: int) -> set:
+    """Names of the genomes whose streams the cascade releases: none when
+    two levels of num_bits bits plus every genome's stream (sizes: name
+    -> file bytes) fit in budget bytes, else those above the line."""
+    resident = 2 * (num_bits // 8) + sum(int(b * STREAM_BYTES_PER_BASE) for b in sizes.values())
+    if resident <= budget:
+        return set()
+    return {n for n, b in sizes.items() if b > RELEASE_LINE_BYTES}
+
+
+def stream_budget(device) -> int | None:
+    """Bytes the cascade's levels and streams may hold on device (None:
+    no bound, as on the CPU, where the plan keeps every stream)."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    unused = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return free + unused - SKETCH_TEMP_BYTES - RELEASE_MARGIN_BYTES
 
 
 @dataclass
@@ -269,9 +319,21 @@ class NtSyntPipeline:
                         num_bits = bf_build.bf_size_bits(
                             [genomes[ordered_names[0]]], cfg.fpr, cfg.bf_bytes
                         )
+                        # each genome is laid out and uploaded when its
+                        # level starts; a released stream is rebuilt at
+                        # its sketch (_collect)
+                        budget = stream_budget(self.device)
+                        drop = set() if budget is None else release_plan(
+                            {n: os.path.getsize(path_of[n]) for n in ordered_names},
+                            num_bits, budget,
+                        )
+                        if drop:
+                            log(f"Releasing the streams of {sorted(drop)} after their "
+                                f"cascade levels (budget {budget} bytes)")
                         common_bf = bf_build.build_common_bf_from_device(
-                            [(n, _stream(n).codes) for n in ordered_names],
+                            [(n, lambda n=n: _stream(n).codes) for n in ordered_names],
                             cfg.k, num_bits, self.device,
+                            release=(lambda n: streams.pop(n, None)) if drop else None,
                         )
                     _keep(common_bf, bf_path, fresh)
         if cfg.repeat:
@@ -280,14 +342,13 @@ class NtSyntPipeline:
                 fresh, repeat_bf = self._reuse_bf(rbf_path, is_rank0, mesh)
                 if repeat_bf is None:
                     if mesh is not None:
-                        # at the single walk's segment: once a one-contig
-                        # genome has more than D * 2^19 k-mers, the slabs'
-                        # segments are the single walk's, and so is the
-                        # filter (the JAX pipeline keeps the default 2^21,
-                        # which binds only past D * 2^20 k-mers)
+                        # the mesh walk's default segment cap, 2^21, as
+                        # in the JAX pipeline: the segments are part of
+                        # the result, so past D * 2^20 k-mers of a
+                        # one-contig genome this filter is the JAX
+                        # mesh's, not the single walk's (at 2^20)
                         repeat_bf = pmesh.distributed_repeat_bf(
                             [genomes[n] for n in names], cfg.k, mesh=mesh,
-                            seg_max=bf_build.PIPELINE_CHUNK,
                         )
                     else:
                         repeat_bf = bf_build.build_repeat_bf(

@@ -68,20 +68,32 @@ def insert_stream(bf, codes: torch.Tensor, k: int, sweep: bool = False) -> None:
             bf.insert(canon, valid)
 
 
-def build_common_bf_from_device(entries, k: int, num_bits: int, device) -> bloom.BloomFilter:
-    """Cascade over [(name, codes uint8 tensor on device) ...], already in
-    the reference's lexicographic path order. Any stream layout with at
-    least k-1 code-4 separators between contigs inserts exactly the
-    genome's k-mer set (k-mers over a separator are invalid)."""
+def build_common_bf_from_device(entries, k: int, num_bits: int, device,
+                                release=None) -> bloom.BloomFilter:
+    """Cascade over [(name, get) ...], already in the reference's
+    lexicographic path order: get() returns the genome's uint8 code
+    stream on the device, and is called only when that genome's level
+    starts, so a caller reading genomes ahead on another thread overlaps
+    genome i+1's read with level i. Any stream layout with at least k-1
+    code-4 separators between contigs inserts exactly the genome's k-mer
+    set (k-mers over a separator are invalid). release(name), when
+    given, is called right after that genome's level is inserted and
+    ANDed, once this function holds no reference to its stream: the
+    caller may then drop the stream (ntsynt_tpu/ops/bf_build.py, the
+    callable form of build_common_bf_from_device)."""
     log(f"Building common Bloom filter ({num_bits // 8} bytes) over {len(entries)} genomes")
     sweep = bf_sweep.mode() is not None and bf_sweep.supported(num_bits.bit_length() - 1)
     bf = None
-    for i, (name, codes) in enumerate(entries):
+    for i, (name, get) in enumerate(entries):
+        codes = get()
         level = bloom.BloomFilter(num_bits, k, device=device)
         insert_stream(level, codes, k, sweep=sweep)
+        del codes
         if bf is not None:
             level.words &= bf.words
         bf = level
+        if release is not None:
+            release(name)
         occ = bf.fpr()
         if i == 0:
             log(f"Level-1 BF occupancy/FPR: {occ:.4f}")
@@ -124,7 +136,7 @@ def build_common_bf(genomes, k: int, fpr: float = 0.025, bf_bytes=None, device="
     ordered = sorted(genomes, key=lambda g: g.path)
     num_bits = bf_size_bits(genomes, fpr, bf_bytes)
     entries = [
-        (g.name, torch.from_numpy(stream_buffer(g, k)).to(device)) for g in ordered
+        (g.name, lambda g=g: torch.from_numpy(stream_buffer(g, k)).to(device)) for g in ordered
     ]
     return build_common_bf_from_device(entries, k, num_bits, device)
 

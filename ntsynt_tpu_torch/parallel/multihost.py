@@ -103,6 +103,10 @@ def main(argv=None) -> int:
         # versions run)
         print(f"[multihost] process {dist.get_rank()} launches {json.dumps(_kernels.LAUNCHES)}",
               flush=True)
+        if device.startswith("cuda"):
+            # the rank's device-memory high-water (torch's allocator)
+            print(f"[multihost] process {dist.get_rank()} max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()}", flush=True)
         return rc
     finally:
         dist.destroy_process_group()
