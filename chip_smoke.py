@@ -19,7 +19,8 @@ Phases, each printing one JSON line with its elapsed seconds:
      the repeat walk's shape, K4 a 2^34-bit filter and its bin/apply
      split, K5 its cascade, its two single-cell rows, its bin/apply split
      and its edge cases (k5_edges); K2 also the one PyTorch expression
-     that computes it (library_ms, k2_library), at w=1000 and w=10,000;
+     that computes it (library_ms, k2_library), at w=1000 and w=10,000,
+     and K3 its boolean-mask indexing (k3_library) at each of its rows;
   4. main path: two 100 Mbp genomes (0.1% SNPs, one 50 kb inversion) are
      generated into a temporary directory and run through the port's CLI
      (``python -m ntsynt_tpu_torch a.fa b.fa -d 1``) on the card; the
@@ -82,7 +83,23 @@ Phases, each printing one JSON line with its elapsed seconds:
      sketched on the card after the cascade over it and a copy with
      0.1% SNPs, must give on the tail exactly the CPU port's sketch of
      the tail alone; (d) the mesh at D = 1 must give the card's sketch of
-     that genome.
+     that genome;
+ 15. published_shapes: the JAX package's other two published shapes,
+     bench.py's genomes (seed 20260817) through the default CLI, each in
+     a process of its own: (a) 2 x 3 Gbp (one 3 Gbp contig a genome, a
+     1.5 Mbp inversion at 1.2 Gbp in genome B): MemTotal and free disk
+     recorded first (too little of either fails); 3 blocks of 2 rows,
+     the inversion found within 150 kb, each genome's last block ending
+     past 2^31, the common filter at the 2^34-bit cap, each cascade
+     level's occupancy printed beside the JAX package's, K1-K4 launched
+     as 45 segments a genome give, and the CLI's minimizers in a 4 Mbp
+     slice of genome A past 2^31 equal to the CPU port's sketch of the
+     slice probed against a CPU copy of the same filter (built in this
+     process); (b) 11 x 100 Mbp: 3 blocks of one row a genome and one
+     minimizer count each, the 50 kb inversion found, 11 cascade levels
+     on a 2^32-bit filter, the launches the segments give; (c) the
+     11-genome shape at 11 x 1 Mbp on --device cuda and --device cpu:
+     every artifact byte-identical.
 Each path's kernel counts are set to 0 just before it and read just
 after (a mesh rank's, which start at 0 in its own process, at its end). Then the kernel table as one JSON line, nvidia-smi's "name, power
 limit" line, and last {"ok": true, "device": {...}}. Any failed check
@@ -882,15 +899,33 @@ def phase_make_bf(torch, dev, tmp: str, fa: str, fb: str, cascade, info: dict) -
     os.remove(prefix + ".bf")
 
 
+def k3_library(torch, arg, minv, legit):
+    """K3's function by PyTorch's boolean-mask indexing (the yardstick,
+    used nowhere in the port): compact_plain's flags, then the flagged
+    windows' (position, hash) pairs in one mask index, which syncs once
+    to size its output as K3's wrapper does."""
+    from ntsynt_tpu_torch.ops.nthash import SENTINEL
+
+    live = legit & (minv != SENTINEL)
+    flag = live.clone()
+    flag[1:] &= ~live[:-1] | (arg[1:] != arg[:-1])
+    pairs = torch.stack([arg, minv])[:, flag]
+    return pairs[0], pairs[1]
+
+
 def time_compact(torch, sketch_device, arg, minv, legit, reps: int = 10) -> dict:
     """K3 vs its plain version on these windows: check, then its device
     time (ms: compact_launch, which does not sync, in a CUDA graph) and
     its wrapper's (wrapper_ms: a loop of calls, each syncing once), both
     writing into buffers made beforehand, as the sketch's in-place call
-    allocates none."""
+    allocates none; and the library expression (k3_library), checked
+    against the plain version and timed as a loop of calls."""
     pos, hsh = sketch_device.compact_minimizers(arg, minv, legit)
-    err = require_equal(f"K3 {arg.shape[0]} windows",
-                        zip((pos, hsh), sketch_device.compact_plain(arg, minv, legit)))
+    plain = sketch_device.compact_plain(arg, minv, legit)
+    err = require_equal(f"K3 {arg.shape[0]} windows", zip((pos, hsh), plain))
+    require_equal(f"K3's library expression, {arg.shape[0]} windows",
+                  zip(k3_library(torch, arg, minv, legit), plain))
+    del plain
     nw, m = arg.shape[0], pos.shape[0]
     out = (torch.empty_like(arg), torch.empty_like(minv))
     return dict(
@@ -899,6 +934,7 @@ def time_compact(torch, sketch_device, arg, minv, legit, reps: int = 10) -> dict
         wrapper_ms=cuda_time_ms(
             lambda: sketch_device.compact_minimizers(arg, minv, legit, out=out), reps),
         plain_ms=cuda_time_ms(lambda: sketch_device.compact_plain(arg, minv, legit), 2),
+        library_ms=cuda_time_ms(lambda: k3_library(torch, arg, minv, legit), reps),
         bound_ms=(17 * nw + 16 * m) / HBM_BYTES_PER_S * 1e3,
         shape=f"{nw} windows -> {m} minimizers",
     )
@@ -937,7 +973,36 @@ def phase_winmin_refine(torch, dev, shapes, kernels: dict, info: dict) -> None:
     info["compact_launch_windows"] = [nw for (nw,) in shapes["compact"]]
 
 
-def phase_card_vs_cpu(tmp: str, info: dict) -> None:
+def cli_card_vs_cpu(torch, root: str, case: str, args) -> dict:
+    """The CLI on args from root/<case>_cuda with --device cuda and from
+    root/<case>_cpu with --device cpu: every artifact must be
+    byte-identical. Returns their names, the blocks' rows, each run's
+    seconds and the card run's launches."""
+    outs, out = {}, {}
+    for device in ("cuda", "cpu"):
+        work = os.path.join(root, f"{case}_{device}")
+        os.makedirs(work)
+        argv = [*args, "--device", device]
+        t0 = time.perf_counter()
+        if device == "cuda":
+            _, out["launches"], _ = drive_path(torch, "main", lambda: run_cli(work, argv))
+        else:
+            run_cli(work, argv)
+        out[f"{device}_s"] = round(time.perf_counter() - t0, 3)
+        outs[device] = {f: open(os.path.join(work, f), "rb").read()
+                        for f in sorted(os.listdir(work))}
+    if sorted(outs["cuda"]) != sorted(outs["cpu"]):
+        raise AssertionError(
+            f"{case}: artifact sets differ: {sorted(outs['cuda'])} vs {sorted(outs['cpu'])}")
+    for f, data in outs["cuda"].items():
+        if outs["cpu"][f] != data:
+            raise AssertionError(f"{case}: {f} differs between --device cuda and --device cpu")
+    out.update(artifacts_identical=sorted(outs["cuda"]),
+               blocks_rows=outs["cuda"]["smoke.synteny_blocks.tsv"].count(b"\n"))
+    return out
+
+
+def phase_card_vs_cpu(torch, tmp: str, info: dict) -> None:
     """The 200 kb inversion scenario of the CPU tests (with a tandem
     repeat for the repeat filter), on cuda and cpu, without and with each
     --filter mode."""
@@ -954,23 +1019,7 @@ def phase_card_vs_cpu(tmp: str, info: dict) -> None:
             "-b", "500", "--indel", "500", "--merge", "3000", "-p", "smoke"]
     for case, extra in (("default", []), ("filter_Indexlr", ["--filter", "Indexlr"]),
                         ("filter_Filter", ["--filter", "Filter"])):
-        outs = {}
-        for device in ("cuda", "cpu"):
-            work = os.path.join(small, f"{case}_{device}")
-            os.makedirs(work)
-            run_cli(work, args + extra + ["--device", device])
-            outs[device] = {f: open(os.path.join(work, f), "rb").read()
-                            for f in sorted(os.listdir(work))}
-        if sorted(outs["cuda"]) != sorted(outs["cpu"]):
-            raise AssertionError(
-                f"{case}: artifact sets differ: {sorted(outs['cuda'])} vs {sorted(outs['cpu'])}")
-        for f in outs["cuda"]:
-            if outs["cuda"][f] != outs["cpu"][f]:
-                raise AssertionError(f"{case}: {f} differs between --device cuda and --device cpu")
-        info[case] = dict(
-            artifacts_identical=sorted(outs["cuda"]),
-            blocks_rows=outs["cuda"]["smoke.synteny_blocks.tsv"].decode().count("\n"),
-        )
+        info[case] = cli_card_vs_cpu(torch, small, case, args + extra)
 
 
 GENOME_FIELDS = ("lengths", "offsets", "codes", "raw", "fai_offsets", "fai_linebases",
@@ -1501,13 +1550,13 @@ def _write_fasta(path: str, g: np.ndarray, step: int = 80):
         f.write(body.tobytes())
 
 
-def _gen_genomes(tmp, n_genomes: int, length: int):
+def _gen_genomes(tmp, n_genomes: int, length: int, keep: bool = False):
     """bench.py's _gen_genomes (copied: bench.py imports jax): genome A
     and n-1 copies with 0.1% SNPs; copy 1 also carries a length/2000
-    inversion at 0.4 L."""
+    inversion at 0.4 L. With keep, returns (paths, the genomes' codes)."""
     rng = np.random.default_rng(GIGA_SEED)
     base = rng.integers(0, 4, length, dtype=np.uint8)
-    paths = []
+    paths, kept = [], [base]
     p0 = os.path.join(tmp, "benchA.fa")
     _write_fasta(p0, base)
     paths.append(p0)
@@ -1524,9 +1573,11 @@ def _gen_genomes(tmp, n_genomes: int, length: int):
         p = os.path.join(tmp, f"bench{chr(ord('B') + gi - 1)}.fa")
         _write_fasta(p, mut)
         paths.append(p)
+        if keep:
+            kept.append(mut)
         del mut, pos
     del base
-    return paths
+    return (paths, kept) if keep else paths
 
 
 def segment_launches(contig_bp: int, k: int, w: int, bits_log2: int) -> dict:
@@ -1551,12 +1602,12 @@ def segment_launches(contig_bp: int, k: int, w: int, bits_log2: int) -> dict:
 
 
 def check_gigabase_launches(launches: dict, shapes: dict, n_genomes: int, contig_bp: int,
-                            bits_log2: int, w: int = 1000) -> dict:
-    """The 3 x 1 Gbp run's K1-K4 launches against segment_launches: K4's
-    and K2's at the main w are exactly the segments'; K1 and K3 launch
-    once more for each refinement-round K2 launch (w other than the
-    main one), whose sizes depend on the blocks. Returns the expected
-    counts."""
+                            bits_log2: int, w: int = 1000, label: str = "gigabase") -> dict:
+    """A run's K1-K4 launches on n_genomes one-contig genomes of
+    contig_bp against segment_launches: K4's and K2's at the main w are
+    exactly the segments'; K1 and K3 launch once more for each
+    refinement-round K2 launch (w other than the main one), whose sizes
+    depend on the blocks. Returns the expected counts."""
     from collections import Counter
 
     want = {name: Counter() for name in ("nthash", "winmin", "compact", "bf_insert")}
@@ -1567,27 +1618,28 @@ def check_gigabase_launches(launches: dict, shapes: dict, n_genomes: int, contig
     main_k2 = Counter({s: c for s, c in got["winmin"].items() if s[1] == w})
     refine = sum(got["winmin"].values()) - sum(main_k2.values())
     if got["bf_insert"] != want["bf_insert"] or main_k2 != want["winmin"]:
-        raise AssertionError(f"gigabase: K4 launches {dict(got['bf_insert'])} and K2 launches "
+        raise AssertionError(f"{label}: K4 launches {dict(got['bf_insert'])} and K2 launches "
                              f"at w={w} {dict(main_k2)}, want {dict(want['bf_insert'])} and "
                              f"{dict(want['winmin'])}")
     for name in ("nthash", "compact"):
         missing = want[name] - got[name]
         extra = sum(got[name].values()) - sum(want[name].values())
         if missing or extra != refine:
-            raise AssertionError(f"gigabase: {name} lacks {dict(missing)} or launched {extra} "
+            raise AssertionError(f"{label}: {name} lacks {dict(missing)} or launched {extra} "
                                  f"times beyond the segments, want {refine} (refinement)")
     expected = {name: sum(want[name].values()) for name in want}
     for name in ("nthash", "winmin", "compact"):
         expected[name] += refine
     if {name: launches[name] for name in expected} != expected:
-        raise AssertionError(f"gigabase: launches {launches}, want {expected}")
+        raise AssertionError(f"{label}: launches {launches}, want {expected}")
     return dict(expected, refinement_k2_launches=refine)
 
 
 def run_cli_worker(work: str, args, timeout: int) -> dict:
     """The port's CLI in a process of its own (``chip_smoke.py
-    --cli-worker``), from work: its kernel launches and their sizes and
-    torch.cuda.max_memory_allocated over the run."""
+    --cli-worker``), from work: its kernel launches and their sizes,
+    torch.cuda.max_memory_allocated over the run and each cascade level's
+    occupancy."""
     out = os.path.join(work, "worker.json")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-worker", out, "--",
                            *args], cwd=work, env=subprocess_env(), capture_output=True, text=True,
@@ -1596,7 +1648,18 @@ def run_cli_worker(work: str, args, timeout: int) -> dict:
         raise AssertionError(f"CLI worker exited {proc.returncode}:\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     with open(out) as fin:
-        return json.load(fin)
+        res = json.load(fin)
+    # each cascade level's occupancy, as the run logs it (bf_build)
+    res["occupancy"] = [float(x) for x in OCCUPANCY_LINE.findall(proc.stdout)]
+    return res
+
+
+def mem_total_bytes() -> int:
+    with open("/proc/meminfo") as fin:
+        for line in fin:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemTotal in /proc/meminfo")
 
 
 def cli_worker(out: str, args) -> int:
@@ -1617,17 +1680,6 @@ def cli_worker(out: str, args) -> int:
                    "shapes": {k: list(v) for k, v in _kernels.SHAPES.items()},
                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}, fout)
     return rc
-
-
-def gigabase_run_info(work: str, info: dict) -> None:
-    """Stage seconds, host RSS and device peak from the run's time.tsv,
-    the assemblies its blocks name, and the planted inversion's block."""
-    info["stages"] = read_stages(os.path.join(work, "smoke.time.tsv"))
-    rows = read_blocks(os.path.join(work, "smoke.synteny_blocks.tsv"))
-    info["blocks"] = len({r["id"] for r in rows})
-    info["block_assemblies"] = sorted({r["asm"] for r in rows})
-    info["inversion_block"] = find_inversion(rows, GIGA_INV_START, GIGA_INV_START + GIGA_INV_BP,
-                                             tol=GIGA_INV_TOL)
 
 
 def release_forced_run(torch, dev, work: str, paths, num_bits: int, info: dict) -> None:
@@ -1788,19 +1840,12 @@ def phase_gigabase(torch, dev, tmp: str, info: dict, kernels: dict) -> None:
     t0 = time.perf_counter()
     res = run_cli_worker(work, [*paths, "-d", "1", "-p", "smoke", "--benchmark"], timeout=600)
     a["process_s"] = round(time.perf_counter() - t0, 3)
-    a["max_memory_allocated_bytes"] = res["max_memory_allocated_bytes"]
-    a["launches"] = res["launches"]
-    for kernel in PATH_KERNELS["main"]:
-        if res["launches"][kernel] <= 0:
-            raise AssertionError(f"gigabase a: kernel {kernel} was not launched")
-    with open(os.path.join(work, "smoke.common.bf")) as fin:
-        num_bits = json.load(fin)["num_bits"]  # the stub's header
-    a["num_bits"] = num_bits
+    rows = shape_run_info(work, paths, res, a)
+    num_bits = a["num_bits"]
     a["expected_launches"] = check_gigabase_launches(
         res["launches"], res["shapes"], GIGA_GENOMES, GIGA_BP, num_bits.bit_length() - 1)
-    gigabase_run_info(work, a)
-    if a["block_assemblies"] != sorted(os.path.basename(p) for p in paths):
-        raise AssertionError(f"gigabase a: blocks name {a['block_assemblies']}")
+    a["inversion_block"] = find_inversion(rows, GIGA_INV_START, GIGA_INV_START + GIGA_INV_BP,
+                                          tol=GIGA_INV_TOL)
     for name in kernels:
         kernels[name]["gigabase_launches"] = res["launches"][name]
 
@@ -1809,7 +1854,7 @@ def phase_gigabase(torch, dev, tmp: str, info: dict, kernels: dict) -> None:
     os.makedirs(work_b)
     b = info["b_release_forced"] = {}
     release_forced_run(torch, dev, work_b, paths, num_bits, b)
-    gigabase_run_info(work_b, b)
+    b["stages"] = read_stages(os.path.join(work_b, "smoke.time.tsv"))
     with open(os.path.join(work, "smoke.synteny_blocks.tsv"), "rb") as f1, \
             open(os.path.join(work_b, "smoke.synteny_blocks.tsv"), "rb") as f2:
         if f1.read() != f2.read():
@@ -1822,6 +1867,200 @@ def phase_gigabase(torch, dev, tmp: str, info: dict, kernels: dict) -> None:
 
     # c, d: a stream past 2^31 bases, in memory
     past_2_31_checks(torch, dev, info.setdefault("c_d_past_2_31", {}))
+
+
+# ---------------------------------------------------------------------------
+# the published_shapes phase: the JAX package's other two published
+# shapes through the CLI (bench.py --gbp 3 --genomes 2 and --gbp 0.1
+# --genomes 11), and eleven genomes on the card against the CPU
+# ---------------------------------------------------------------------------
+
+HUMAN_BP = 3_000_000_000
+HUMAN_GENOMES = 2
+HUMAN_INV_START = int(HUMAN_BP * 0.4)
+HUMAN_INV_BP = HUMAN_BP // 2000  # 1.5 Mbp
+HUMAN_INV_TOL = 150_000  # GIGA_INV_TOL scaled from 500 kb to 1.5 Mbp
+CAP_LOG2 = 34  # the common filter's cap (ops/bloom.pow2_bits)
+# the JAX package's cascade occupancy per level at 2 x 3 Gbp (BENCH.md,
+# round 5): the same genomes must fill the same bits
+JAX_HUMAN_OCCUPANCY = (0.1602, 0.1568)
+SLICE_START = 2_200_000_000  # a slice of genome A's one contig past 2^31
+SLICE_BP = 4_000_000
+# MemTotal a 2 x 3 Gbp run needs: the CLI process peaks at about 26 GB
+# of host RSS, the generator holds about 12 GB before it
+HUMAN_MIN_MEM = 48 << 30
+HUMAN_MIN_DISK = 8 << 30  # two 3 Gbp FASTAs, their sketch TSVs and .fai
+BEE_BP = 100_000_000
+BEE_GENOMES = 11
+BEE_INV_START = int(BEE_BP * 0.4)
+BEE_INV_BP = BEE_BP // 2000  # 50 kb
+BEE_LOG2 = 32
+BEE_SMALL_BP = 1_000_000  # check c: eleven genomes, card against CPU
+OCCUPANCY_LINE = re.compile(r"(?:Level-1 BF|Cascade BF) occupancy/FPR(?: after \S+)?: ([0-9.]+)")
+
+
+def shape_run_info(work: str, paths, res: dict, info: dict) -> list:
+    """Stage seconds, peaks, occupancy and the filter's size of a CLI
+    worker run on bench.py's genomes; returns its block rows, which name
+    every genome."""
+    info.update(max_memory_allocated_bytes=res["max_memory_allocated_bytes"],
+                launches=res["launches"], occupancy=res["occupancy"])
+    for kernel in PATH_KERNELS["main"]:
+        if res["launches"][kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched")
+    with open(os.path.join(work, "smoke.common.bf")) as fin:
+        info["num_bits"] = json.load(fin)["num_bits"]  # the stub's header
+    if len(info["occupancy"]) != len(paths):
+        raise AssertionError(f"{len(info['occupancy'])} cascade levels logged, "
+                             f"want {len(paths)}")
+    info["stages"] = read_stages(os.path.join(work, "smoke.time.tsv"))
+    # the run's host RSS high-water as its stage timer sampled it
+    info["peak_rss_mb"] = max(st["peak_rss_mb"] for st in info["stages"].values())
+    rows = read_blocks(os.path.join(work, "smoke.synteny_blocks.tsv"))
+    info["block_rows"] = len(rows)
+    info["blocks"] = len({r["id"] for r in rows})
+    names = sorted(os.path.basename(p) for p in paths)
+    if sorted({r["asm"] for r in rows}) != names:
+        raise AssertionError(f"the blocks name {sorted({r['asm'] for r in rows})}, want {names}")
+    return rows
+
+
+def human_shape(torch, dev, tmp: str, info: dict) -> dict:
+    """Check a: bench.py's 2 x 3 Gbp genomes (one 3 Gbp contig each)
+    through the CLI in a process of its own. The common filter over the
+    same genomes is built in this process first; a CPU copy of its words
+    probes the CPU port's sketch of a 4 Mbp slice of genome A past 2^31,
+    which must equal the CLI's minimizers there. Returns the launches."""
+    from ntsynt_tpu_torch.io.sketch_tsv import read_sketch_tsv
+    from ntsynt_tpu_torch.ops import bf_build, bloom
+    from ntsynt_tpu_torch.ops import sketch as sketch_ops
+
+    k, w = 24, 1000
+    human = os.path.join(tmp, "human")
+    os.makedirs(human)
+    info["mem_total_bytes"] = mem_total_bytes()
+    info["disk_free_bytes_at_start"] = shutil.disk_usage(human).free
+    if info["mem_total_bytes"] < HUMAN_MIN_MEM:
+        raise AssertionError(f"2 x 3 Gbp: MemTotal is {info['mem_total_bytes']} bytes, below "
+                             f"the {HUMAN_MIN_MEM} the run needs")
+    if info["disk_free_bytes_at_start"] < HUMAN_MIN_DISK:
+        raise AssertionError(f"2 x 3 Gbp: {info['disk_free_bytes_at_start']} bytes free on "
+                             f"{human}, below the {HUMAN_MIN_DISK} the run needs")
+    t0 = time.perf_counter()
+    paths, codes = _gen_genomes(human, HUMAN_GENOMES, HUMAN_BP, keep=True)
+    info["generate_write_s"] = round(time.perf_counter() - t0, 3)
+
+    # the final filter's words on the host, and genome A's slice
+    t0 = time.perf_counter()
+    genomes = [packed_genome(os.path.basename(p), c, [HUMAN_BP]) for p, c in zip(paths, codes)]
+    bf = bf_build.build_common_bf(genomes, k, device=dev)
+    num_bits = bf.num_bits
+    popcount = bf.popcount()
+    host_bf = bloom.BloomFilter(num_bits, k, words=bf.words.cpu())
+    slice_codes = codes[0][SLICE_START:SLICE_START + SLICE_BP].copy()
+    del bf, genomes, codes
+    torch.cuda.empty_cache()
+    info["in_process_cascade_s"] = round(time.perf_counter() - t0, 3)
+
+    work = os.path.join(human, "cli")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    res = run_cli_worker(work, [*paths, "-d", "1", "-p", "smoke", "--benchmark"], timeout=900)
+    info["process_s"] = round(time.perf_counter() - t0, 3)
+    rows = shape_run_info(work, paths, res, info)
+    if info["num_bits"] != 1 << CAP_LOG2 or num_bits != 1 << CAP_LOG2:
+        raise AssertionError(f"2 x 3 Gbp: the filter has {info['num_bits']} bits "
+                             f"({num_bits} in process), want the cap 2^{CAP_LOG2}")
+    info["jax_occupancy"] = JAX_HUMAN_OCCUPANCY
+    info["final_occupancy_in_process"] = popcount / num_bits
+    if abs(popcount / num_bits - info["occupancy"][-1]) > 1e-4:
+        raise AssertionError(f"2 x 3 Gbp: the in-process filter's occupancy {popcount / num_bits}"
+                             f" is not the CLI's {info['occupancy'][-1]}")
+    if info["blocks"] != 3 or len(rows) != 3 * HUMAN_GENOMES:
+        raise AssertionError(f"2 x 3 Gbp: {info['blocks']} blocks in {len(rows)} rows, want 3 in "
+                             f"{3 * HUMAN_GENOMES}: {rows}")
+    info["inversion_block"] = find_inversion(rows, HUMAN_INV_START,
+                                             HUMAN_INV_START + HUMAN_INV_BP, tol=HUMAN_INV_TOL)
+    info["last_end"] = {a: max(r["end"] for r in rows if r["asm"] == a)
+                        for a in sorted({r["asm"] for r in rows})}
+    if min(info["last_end"].values()) <= TAIL_PAST:
+        raise AssertionError(f"2 x 3 Gbp: a last block ends at or before 2^31: {info['last_end']}")
+    info["expected_launches"] = check_gigabase_launches(
+        res["launches"], res["shapes"], HUMAN_GENOMES, HUMAN_BP, CAP_LOG2, label="2 x 3 Gbp")
+
+    # the CLI's minimizers in the slice against the CPU port's sketch of
+    # the slice alone, away from its edges
+    t0 = time.perf_counter()
+    edge = w + k
+    ref = sketch_ops.sketch_genome(packed_genome("S", slice_codes, [SLICE_BP]), k, w,
+                                   common_bf=host_bf, device="cpu")
+    inner = (ref.positions >= edge) & (ref.positions < SLICE_BP - edge)
+    (_, hashes, positions, _), = read_sketch_tsv(os.path.join(work, "benchA.fa.k24.w1000.tsv"))
+    on = (positions >= SLICE_START + edge) & (positions < SLICE_START + SLICE_BP - edge)
+    got_pos, got_h = positions[on], hashes[on]
+    if len(got_pos) == 0 or not (np.array_equal(got_pos, ref.positions[inner] + SLICE_START)
+            and np.array_equal(got_h, ref.hashes[inner])):
+        raise AssertionError(f"2 x 3 Gbp: the CLI's {len(got_pos)} minimizers in [{SLICE_START}, "
+                             f"+{SLICE_BP}) differ from the CPU port's {int(inner.sum())}")
+    info["slice"] = dict(start=SLICE_START, bases=SLICE_BP, minimizers=len(got_pos),
+                         equal_cpu=True, check_s=round(time.perf_counter() - t0, 3))
+    del host_bf
+    shutil.rmtree(human, ignore_errors=True)
+    return res["launches"]
+
+
+def bee_shape(tmp: str, info: dict) -> dict:
+    """Check b: bench.py's 11 x 100 Mbp genomes through the CLI in a
+    process of its own: 3 blocks, each one row for every genome and one
+    minimizer count, the inversion found, 11 cascade levels on a 2^32-bit
+    filter. Returns the launches."""
+    bee = os.path.join(tmp, "bee")
+    os.makedirs(bee)
+    t0 = time.perf_counter()
+    paths = _gen_genomes(bee, BEE_GENOMES, BEE_BP)
+    info["generate_write_s"] = round(time.perf_counter() - t0, 3)
+    work = os.path.join(bee, "cli")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    res = run_cli_worker(work, [*paths, "-d", "1", "-p", "smoke", "--benchmark"], timeout=600)
+    info["process_s"] = round(time.perf_counter() - t0, 3)
+    rows = shape_run_info(work, paths, res, info)
+    if info["num_bits"] != 1 << BEE_LOG2:
+        raise AssertionError(f"11 x 100 Mbp: the filter has {info['num_bits']} bits, "
+                             f"want 2^{BEE_LOG2}")
+    ids = sorted({r["id"] for r in rows})
+    if len(ids) != 3 or len(rows) != 3 * BEE_GENOMES:
+        raise AssertionError(f"11 x 100 Mbp: {len(ids)} blocks in {len(rows)} rows, want 3 in "
+                             f"{3 * BEE_GENOMES}")
+    for i in ids:
+        blk = [r for r in rows if r["id"] == i]
+        if len({r["asm"] for r in blk}) != BEE_GENOMES or len({r["nmx"] for r in blk}) != 1:
+            raise AssertionError(f"11 x 100 Mbp: block {i} is not one row a genome with one "
+                                 f"minimizer count: {blk}")
+    info["inversion_block"] = find_inversion(rows, BEE_INV_START, BEE_INV_START + BEE_INV_BP)
+    info["expected_launches"] = check_gigabase_launches(
+        res["launches"], res["shapes"], BEE_GENOMES, BEE_BP, BEE_LOG2, label="11 x 100 Mbp")
+    shutil.rmtree(bee, ignore_errors=True)
+    return res["launches"]
+
+
+def bee_card_vs_cpu(torch, tmp: str, info: dict) -> None:
+    """Check c: the 11-genome shape at 11 x 1 Mbp through the CLI on
+    --device cuda and --device cpu: every artifact byte-identical."""
+    small = os.path.join(tmp, "bee_small")
+    os.makedirs(small)
+    paths = _gen_genomes(small, BEE_GENOMES, BEE_SMALL_BP)
+    info.update(cli_card_vs_cpu(torch, small, "bee", [*paths, "-d", "1", "-p", "smoke"]))
+    shutil.rmtree(small, ignore_errors=True)
+
+
+def phase_published_shapes(torch, dev, tmp: str, info: dict, kernels: dict) -> None:
+    """Checks a-c (module docstring, phase 15)."""
+    launches = {"2x3gbp": human_shape(torch, dev, tmp, info.setdefault("a_2x3gbp", {}))}
+    launches["11x100mbp"] = bee_shape(tmp, info.setdefault("b_11x100mbp", {}))
+    bee_card_vs_cpu(torch, tmp, info.setdefault("c_11x1mbp_card_vs_cpu", {}))
+    for name in kernels:
+        kernels[name]["published_launches"] = {s: n[name] for s, n in launches.items()}
 
 
 def main_cards(gigabase: bool = False) -> int:
@@ -1986,7 +2225,7 @@ def main() -> int:
                 run_cli_path(torch, tmp, f"filter_{mode}", "filter",
                              [fa, fb, "--filter", mode], info)
         with phase("card_vs_cpu", {}) as info:
-            phase_card_vs_cpu(tmp, info)
+            phase_card_vs_cpu(torch, tmp, info)
         with phase("host_native", {}) as info:
             phase_host_native(tmp, fa, info)
         with phase("walk", {}) as info:
@@ -1997,6 +2236,8 @@ def main() -> int:
             phase_mesh(torch, dev, tmp, fa, fb, main_out, info, kernels)
         with phase("gigabase", {}) as info:
             phase_gigabase(torch, dev, tmp, info, kernels)
+        with phase("published_shapes", {}) as info:
+            phase_published_shapes(torch, dev, tmp, info, kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
