@@ -21,6 +21,10 @@ Phases, each printing one JSON line with its elapsed seconds:
      and its edge cases (k5_edges); K2 also the one PyTorch expression
      that computes it (library_ms, k2_library), at w=1000 and w=10,000,
      and K3 its boolean-mask indexing (k3_library) at each of its rows;
+     K3 reads the legit mask as bits, also at odd bit offsets; the
+     unpack of the packed upload (csrc/unpack.cu) at the main path's
+     group of 2^26 codes, at the JAX package's 2^26 + 24 and at the
+     edges of its two routes;
   4. main path: two 100 Mbp genomes (0.1% SNPs, one 50 kb inversion) are
      generated into a temporary directory and run through the port's CLI
      (``python -m ntsynt_tpu_torch a.fa b.fa -d 1``) on the card; the
@@ -75,15 +79,17 @@ Phases, each printing one JSON line with its elapsed seconds:
      CLI in a process of its own (``chip_smoke.py --cli-worker``) must
      find the inversion, name all three genomes in its blocks and launch
      K1-K4 as often as 3 Gbp in 2^26-k-mer segments gives, and prints
-     its stage seconds, host RSS and device peaks; (b) the same run in
+     its stage seconds, host RSS, device peaks and the packed bytes it
+     sent; (b) the same run in
      this process with the cascade's stream budget patched below the
      projection, so that every stream is released and built again at its
      sketch, must write run a's blocks byte for byte; (c) a genome of
      two 1.1 Gbp contigs and a 4 Mbp tail past stream offset 2^31,
      sketched on the card after the cascade over it and a copy with
      0.1% SNPs, must give on the tail exactly the CPU port's sketch of
-     the tail alone; (d) the mesh at D = 1 must give the card's sketch of
-     that genome;
+     the tail alone (the genome's upload alone is timed first: seconds,
+     bytes sent and held); (d) the mesh at D = 1 must give the card's
+     sketch of that genome;
  15. published_shapes: the JAX package's other two published shapes,
      bench.py's genomes (seed 20260817) through the default CLI, each in
      a process of its own: (a) 2 x 3 Gbp (one 3 Gbp contig a genome, a
@@ -95,9 +101,12 @@ Phases, each printing one JSON line with its elapsed seconds:
      as 45 segments a genome give, and the CLI's minimizers in a 4 Mbp
      slice of genome A past 2^31 equal to the CPU port's sketch of the
      slice probed against a CPU copy of the same filter (built in this
-     process); (b) 11 x 100 Mbp: 3 blocks of one row a genome and one
-     minimizer count each, the 50 kb inversion found, 11 cascade levels
-     on a 2^32-bit filter, the launches the segments give; (c) the
+     process; genome A's upload alone is timed: seconds, bytes sent and
+     held), the CLI's device peak below the 18.581 GB of the unpacked
+     upload, and the packed bytes it sent; (b) 11 x 100 Mbp: 3 blocks of
+     one row a genome and one minimizer count each, the 50 kb inversion
+     found, 11 cascade levels on a 2^32-bit filter, the launches the
+     segments give, the packed bytes sent; (c) the
      11-genome shape at 11 x 1 Mbp on --device cuda and --device cpu:
      every artifact byte-identical.
 Each path's kernel counts are set to 0 just before it and read just
@@ -127,11 +136,11 @@ FILTER_LOG2 = 32  # the common filter's size at 100 Mbp (--fpr 0.025)
 # the kernels each path launches (bf_insert builds the repeat filter on
 # the --filter paths; the sweep path's cascade never runs it)
 PATH_KERNELS = {
-    "main": ("nthash", "winmin", "compact", "bf_insert"),
-    "sweep": ("nthash", "winmin", "compact", "bf_sweep"),
-    "sweep_build": ("nthash", "bf_sweep"),
-    "filter": ("nthash", "winmin", "compact", "bf_insert"),
-    "sketch": ("nthash", "winmin", "compact"),  # a sketch alone (the gigabase mesh check)
+    "main": ("nthash", "winmin", "compact", "bf_insert", "unpack"),
+    "sweep": ("nthash", "winmin", "compact", "bf_sweep", "unpack"),
+    "sweep_build": ("nthash", "bf_sweep", "unpack"),
+    "filter": ("nthash", "winmin", "compact", "bf_insert", "unpack"),
+    "sketch": ("nthash", "winmin", "compact", "unpack"),  # a sketch alone (the gigabase mesh check)
 }
 
 
@@ -502,23 +511,99 @@ def k3_cases(rng, tile: int):
     return cases
 
 
+def legit_bits(torch, mask: np.ndarray, offset: int = 0):
+    """A bool window mask as K3's legit input on the card: little-endian
+    bits, the mask's first window at bit offset (the bits before it set,
+    as another share's windows would be)."""
+    return torch.from_numpy(np.packbits(np.concatenate([np.ones(offset, bool), mask]),
+                                        bitorder="little")).cuda()
+
+
 def k3_edges(torch, sketch_device, rng) -> int:
     """K3 vs its plain version on every case of k3_cases, into new
-    buffers and in place (as sketch_stream compacts)."""
+    buffers, in place (as sketch_stream compacts) and with the mask at
+    odd bit offsets (as a mesh share or a segment reads it)."""
     cases = k3_cases(rng, sketch_device.COMPACT_TILE)
     for label, arg, minv, legit in cases:
-        a, m, lg = (torch.from_numpy(x).cuda() for x in (arg, minv, legit))
+        a, m = torch.from_numpy(arg).cuda(), torch.from_numpy(minv).cuda()
+        lg = legit_bits(torch, legit)
         ref = sketch_device.compact_plain(a, m, lg)
         require_equal(f"K3 {label}", zip(sketch_device.compact_minimizers(a, m, lg), ref))
+        for off in (3, 13):
+            require_equal(f"K3 {label}, bit offset {off}", zip(sketch_device.compact_minimizers(
+                a, m, legit_bits(torch, legit, off), off), ref))
         require_equal(f"K3 {label}, in place",
                       zip(sketch_device.compact_minimizers(a, m, lg, out=(a, m)), ref))
-    return 2 * len(cases)
+    return 4 * len(cases)
+
+
+def unpack_codes(rng, n: int) -> np.ndarray:
+    """n random codes with N runs and single Ns."""
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    codes[rng.random(n) < 0.001] = 4
+    codes[n // 3 : n // 3 + 100] = 4
+    return codes
+
+
+def packed_on_card(torch, fio, codes: np.ndarray):
+    """codes (len % 8 == 0) packed by the host library, as one contig
+    filling the stream, on the card: (packed2, nbits)."""
+    n = len(codes)
+    p2, nb = fio.pack_stream(codes, np.zeros(1, np.int64), np.array([n]), np.zeros(1, np.int64),
+                             n)
+    return torch.from_numpy(p2).cuda(), torch.from_numpy(nb).cuda()
+
+
+def unpack_edges(torch, unpack, fio, rng) -> int:
+    """The unpack kernel vs its plain version and the codes it was packed
+    from, on both of its routes: n a multiple of 128 (16-byte route) or
+    not (byte route), the smallest n, all N, and out a view of a larger
+    buffer at an offset that keeps or breaks 16-byte alignment (the
+    neighbours must stay untouched)."""
+    cases = 0
+    for n in (8, 128, 136, 8 * 1021, (1 << 20) + 8, (1 << 20) + 128):
+        codes = unpack_codes(rng, n)
+        if n == 136:
+            codes[:] = 4
+        p2, nb = packed_on_card(torch, fio, codes)
+        want = torch.from_numpy(codes).cuda()
+        for off in (0, 8, 16):
+            big = torch.full((n + 64,), 9, dtype=torch.uint8, device="cuda")
+            unpack.unpack(p2, nb, out=big[off:off + n])
+            require_equal(f"unpack n={n} at offset {off}",
+                          [(big[off:off + n], unpack.unpack_plain(p2, nb)),
+                           (big[off:off + n], want)])
+            if bool((big[:off] != 9).any()) or bool((big[off + n:] != 9).any()):
+                raise AssertionError(f"unpack n={n} at offset {off} wrote past its view")
+            cases += 1
+    return cases
+
+
+def time_unpack(torch, unpack, fio, rng, n: int, reps: int = 20) -> dict:
+    """The unpack of n codes (one group as the upload sends it) vs its
+    plain version and the codes it was packed from, then its device time
+    (a CUDA graph of launches), its wrapper's and the plain version's."""
+    codes = unpack_codes(rng, n)
+    p2, nb = packed_on_card(torch, fio, codes)
+    out = unpack.unpack(p2, nb)
+    err = require_equal(f"unpack {n} codes", [(out, unpack.unpack_plain(p2, nb)),
+                                               (out, torch.from_numpy(codes).cuda())])
+    m = n // 8
+    return dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: unpack.unpack(p2, nb, out), reps),
+        wrapper_ms=cuda_time_ms(lambda: unpack.unpack(p2, nb, out), reps),
+        plain_ms=cuda_time_ms(lambda: unpack.unpack_plain(p2, nb), 2),
+        bound_ms=(3 * n // 8 + n) / HBM_BYTES_PER_S * 1e3,
+        shape=f"{n} codes ({'16-byte' if m % 16 == 0 else 'byte'} route)",
+    )
 
 
 def phase_kernels(torch, dev, kernels: dict) -> None:
     """Each kernel vs its plain version at main-path shapes."""
+    from ntsynt_tpu_torch.io import fasta as fio
     from ntsynt_tpu_torch.ops import (_kernels, bf_build, bf_sweep, bloom, nthash,
-                                      sketch_device, winmin)
+                                      sketch_device, unpack, winmin)
 
     rng = np.random.default_rng(SEED)
     k = 24
@@ -559,6 +644,13 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     )
     del segs
 
+    # the unpack at the main path's group (2^26 codes; the stream's last
+    # group and mesh slabs take the byte route) and at the JAX package's
+    # group length (2^26 + k - 1 codes, rounded up to 8)
+    kernels["unpack"].update(time_unpack(torch, unpack, fio, rng, n),
+                             jax_group=time_unpack(torch, unpack, fio, rng, n + 24),
+                             edge_cases=unpack_edges(torch, unpack, fio, rng))
+
     # K2 at the main path's w (and a streamed w past the staging limit);
     # the refinement rounds' shapes are timed after the main path has
     # recorded them (phase_winmin_refine)
@@ -573,7 +665,7 @@ def phase_kernels(torch, dev, kernels: dict) -> None:
     legit_np = np.ones(nw, dtype=bool)
     for s in rng.integers(0, nw - 2000, 64):
         legit_np[s : s + 1000 + k] = False
-    legit = torch.from_numpy(legit_np).to(dev)
+    legit = legit_bits(torch, legit_np)
     pos = sketch_device.compact_minimizers(arg_main, minv_main, legit)[0]
     if pos.shape[0] == 0 or bool((pos[1:] <= pos[:-1]).any()):
         raise AssertionError("K3: selections must be non-empty and strictly increasing")
@@ -901,12 +993,14 @@ def phase_make_bf(torch, dev, tmp: str, fa: str, fb: str, cascade, info: dict) -
 
 def k3_library(torch, arg, minv, legit):
     """K3's function by PyTorch's boolean-mask indexing (the yardstick,
-    used nowhere in the port): compact_plain's flags, then the flagged
+    used nowhere in the port): the legit bits unpacked by a gather and a
+    shift, compact_plain's flags, then the flagged
     windows' (position, hash) pairs in one mask index, which syncs once
     to size its output as K3's wrapper does."""
     from ntsynt_tpu_torch.ops.nthash import SENTINEL
 
-    live = legit & (minv != SENTINEL)
+    idx = torch.arange(arg.shape[0], device=arg.device)
+    live = ((legit[idx >> 3] >> (idx & 7).to(torch.uint8)) & 1).bool() & (minv != SENTINEL)
     flag = live.clone()
     flag[1:] &= ~live[:-1] | (arg[1:] != arg[:-1])
     pairs = torch.stack([arg, minv])[:, flag]
@@ -930,12 +1024,12 @@ def time_compact(torch, sketch_device, arg, minv, legit, reps: int = 10) -> dict
     out = (torch.empty_like(arg), torch.empty_like(minv))
     return dict(
         max_abs_err=err,
-        ms=device_ms(lambda: sketch_device.compact_launch(arg, minv, legit, out), reps),
+        ms=device_ms(lambda: sketch_device.compact_launch(arg, minv, legit, out=out), reps),
         wrapper_ms=cuda_time_ms(
             lambda: sketch_device.compact_minimizers(arg, minv, legit, out=out), reps),
         plain_ms=cuda_time_ms(lambda: sketch_device.compact_plain(arg, minv, legit), 2),
         library_ms=cuda_time_ms(lambda: k3_library(torch, arg, minv, legit), reps),
-        bound_ms=(17 * nw + 16 * m) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=(16 * nw + -(-nw // 8) + 16 * m) / HBM_BYTES_PER_S * 1e3,
         shape=f"{nw} windows -> {m} minimizers",
     )
 
@@ -966,7 +1060,7 @@ def phase_winmin_refine(torch, dev, shapes, kernels: dict, info: dict) -> None:
         by_w[str(w)] = time_winmin(winmin, keys, w)
         arg, minv = winmin.window_argmin(keys, w)
         k3_refine[str(w)] = time_compact(torch, sketch_device, arg, minv,
-                                         torch.ones_like(arg, dtype=torch.bool), 20)
+                                         legit_bits(torch, np.ones(arg.shape[0], bool)), 20)
         del codes, keys, arg, minv
     info["by_w"] = {w: by_w[str(w)] for w in sorted(largest, reverse=True)}
     info["compact_by_w"] = {w: k3_refine[str(w)] for w in sorted(largest, reverse=True)}
@@ -1740,6 +1834,46 @@ def release_forced_run(torch, dev, work: str, paths, num_bits: int, info: dict) 
     info["released_and_rebuilt"] = names
 
 
+def time_upload(torch, dev, genome, k: int = 24, w: int = 1000) -> dict:
+    """One genome's stream sent to the card as the pipeline sends it
+    (DeviceStream: packed on the host a group at a time, copied and
+    unpacked on the card), then its legit bits: the seconds until the
+    codes have landed, the bytes sent, and the bytes the stream holds."""
+    from ntsynt_tpu_torch.ops import _kernels
+    from ntsynt_tpu_torch.ops import sketch as sketch_ops
+
+    first = len(_kernels.SHAPES["unpack"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = sketch_ops.DeviceStream(genome, k, w, dev)
+    codes = ds.codes
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    legit = ds.legit
+    torch.cuda.synchronize()
+    sizes = [n for (n,) in _kernels.SHAPES["unpack"][first:]]
+    sent = sum(3 * n // 8 for n in sizes)
+    out = dict(stream_codes=ds.n, groups=len(sizes), sent_bytes=sent,
+               sent_bytes_per_base=sent / genome.total_bases, upload_s=round(upload_s, 3),
+               legit_bits_s=round(time.perf_counter() - t0, 3),
+               held_bytes=codes.numel() + legit.numel(),
+               held_bytes_per_base=(codes.numel() + legit.numel()) / genome.total_bases)
+    if len(sizes) != ds.n_groups:
+        raise AssertionError(f"the upload of {genome.name} unpacked {len(sizes)} groups, "
+                             f"want {ds.n_groups}")
+    del ds, codes, legit
+    torch.cuda.empty_cache()
+    return out
+
+
+def sent_bytes(shapes: dict) -> dict:
+    """What a run sent to the card: its unpack launches and the packed
+    bytes they read (3/8 of a byte a code)."""
+    return dict(unpack_launches=len(shapes["unpack"]),
+                sent_bytes=sum(3 * n // 8 for (n,) in shapes["unpack"]))
+
+
 def packed_genome(name: str, codes: np.ndarray, lengths):
     """A PackedGenome of in-memory contigs laid end to end in codes."""
     from ntsynt_tpu_torch.io.fasta import PackedGenome
@@ -1781,6 +1915,7 @@ def past_2_31_checks(torch, dev, info: dict) -> None:
     if tail_start <= TAIL_PAST:
         raise AssertionError(f"gigabase c: the tail starts at {tail_start}, not past {TAIL_PAST}")
     info.update(stream_length=stream.total, tail_start=tail_start)
+    info["upload"] = time_upload(torch, dev, g, k, w)
 
     def on_card():
         bf = bf_build.build_common_bf([g, h], k, device=dev)
@@ -1846,6 +1981,7 @@ def phase_gigabase(torch, dev, tmp: str, info: dict, kernels: dict) -> None:
         res["launches"], res["shapes"], GIGA_GENOMES, GIGA_BP, num_bits.bit_length() - 1)
     a["inversion_block"] = find_inversion(rows, GIGA_INV_START, GIGA_INV_START + GIGA_INV_BP,
                                           tol=GIGA_INV_TOL)
+    a.update(sent_bytes(res["shapes"]))
     for name in kernels:
         kernels[name]["gigabase_launches"] = res["launches"][name]
 
@@ -1889,6 +2025,10 @@ SLICE_BP = 4_000_000
 # MemTotal a 2 x 3 Gbp run needs: the CLI process peaks at about 26 GB
 # of host RSS, the generator holds about 12 GB before it
 HUMAN_MIN_MEM = 48 << 30
+# the CLI's device peak at 2 x 3 Gbp with the unpacked upload (2.0 bytes a
+# base held: codes and a bool legit mask), measured on one NVIDIA H100
+# 80GB HBM3 at 700 W; the packed stream must beat it
+UNPACKED_HUMAN_PEAK = 18_581_000_000
 HUMAN_MIN_DISK = 8 << 30  # two 3 Gbp FASTAs, their sketch TSVs and .fai
 BEE_BP = 100_000_000
 BEE_GENOMES = 11
@@ -1953,6 +2093,7 @@ def human_shape(torch, dev, tmp: str, info: dict) -> dict:
     # the final filter's words on the host, and genome A's slice
     t0 = time.perf_counter()
     genomes = [packed_genome(os.path.basename(p), c, [HUMAN_BP]) for p, c in zip(paths, codes)]
+    info["upload"] = time_upload(torch, dev, genomes[0], k, w)
     bf = bf_build.build_common_bf(genomes, k, device=dev)
     num_bits = bf.num_bits
     popcount = bf.popcount()
@@ -1987,6 +2128,10 @@ def human_shape(torch, dev, tmp: str, info: dict) -> dict:
         raise AssertionError(f"2 x 3 Gbp: a last block ends at or before 2^31: {info['last_end']}")
     info["expected_launches"] = check_gigabase_launches(
         res["launches"], res["shapes"], HUMAN_GENOMES, HUMAN_BP, CAP_LOG2, label="2 x 3 Gbp")
+    info.update(sent_bytes(res["shapes"]))
+    if info["max_memory_allocated_bytes"] >= UNPACKED_HUMAN_PEAK:
+        raise AssertionError(f"2 x 3 Gbp: the device peak {info['max_memory_allocated_bytes']} "
+                             f"is not below the unpacked stream's {UNPACKED_HUMAN_PEAK}")
 
     # the CLI's minimizers in the slice against the CPU port's sketch of
     # the slice alone, away from its edges
@@ -2040,6 +2185,7 @@ def bee_shape(tmp: str, info: dict) -> dict:
     info["inversion_block"] = find_inversion(rows, BEE_INV_START, BEE_INV_START + BEE_INV_BP)
     info["expected_launches"] = check_gigabase_launches(
         res["launches"], res["shapes"], BEE_GENOMES, BEE_BP, BEE_LOG2, label="11 x 100 Mbp")
+    info.update(sent_bytes(res["shapes"]))
     shutil.rmtree(bee, ignore_errors=True)
     return res["launches"]
 
@@ -2188,13 +2334,16 @@ def main() -> int:
             info["libgomp"] = sorted(set(re.findall(r"/\S*libgomp\S*", fin.read())))
 
     sources = {"nthash": "nthash.cu", "winmin": "winmin.cu", "compact": "compact.cu",
-               "bf_insert": "bf_insert.cu", "bf_sweep": "bf_sweep.cu"}
+               "bf_insert": "bf_insert.cu", "bf_sweep": "bf_sweep.cu", "unpack": "unpack.cu"}
     replaces = {
         "nthash": "ntsynt_tpu/ops/nthash_pallas.py:74",
         "winmin": "ntsynt_tpu/ops/winmin_pallas.py:91",
         "compact": "ntsynt_tpu/ops/sketch_device.py:170",
         "bf_insert": "ntsynt_tpu/ops/bf_place.py:288",
         "bf_sweep": "ntsynt_tpu/ops/bf_sweep.py:221",
+        # an XLA op of the JAX package, not a Pallas kernel: _unpack_stream_fn
+        # (ntsynt_tpu/parallel/mesh.py:103, _unpack_row, is the mesh's copy)
+        "unpack": "ntsynt_tpu/ops/sketch.py:381",
     }
     kernels = {
         name: dict(name=name, route="cuda", source=f"ntsynt_tpu_torch/csrc/{src}",

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time K1 (ntHash), K2 (window argmin), K3 (minimizer compaction), K4
-(Bloom-filter insert) and K5 (the binned Bloom-filter sweep) of one
-checkout of ntsynt_tpu_torch on one CUDA card, through their public
-wrappers, so that two commits can be compared on the same card in one
-run:
+(Bloom-filter insert), K5 (the binned Bloom-filter sweep) and, where the
+checkout has it, the unpack of the packed upload of one checkout of
+ntsynt_tpu_torch on one CUDA card, through their public wrappers, so
+that two commits can be compared on the same card in one run:
 
     python3 kernel_ab.py --root OLD_CHECKOUT --out a.json
     python3 kernel_ab.py --root . --out b.json
@@ -16,10 +16,14 @@ are made from --seed with numpy: random 64-bit keys, and random codes
 with 0.1% N for K1. K1 and K4 at the repeat walk's shape take a new
 segment in each call, as the walk does. K3 compacts K2's output at
 w=1000 over a legit mask with contig gaps, and at the refinement
-shapes; its wrapper syncs the host once (twice before the one-pass
-design) to size its result, so its device time captures the launches
-alone: compact_launch where the checkout has it, else the two C entry
-points of the three-kernel design with buffers sized beforehand. K5
+shapes, its legit mask as bits where the checkout's K3 reads bits
+(compact_minimizers takes a legit_offset), else as bytes; its wrapper
+syncs the host once (twice before the one-pass design) to size its
+result, so its device time captures the launches alone: compact_launch
+where the checkout has it, else the two C entry points of the
+three-kernel design with buffers sized beforehand. The unpack runs at
+the main path's group (2^26 codes) and the JAX package's (2^26 + 24),
+from random codes with 0.1% N packed by the checkout's host packer. K5
 runs its four rows: insert and cascade (over a prev holding the first
 half of the keys) of the main path's segment into the 100 Mbp filter's
 size, and 2^22 keys into a 2^16-bit filter and into one 2^19-bit cell of
@@ -27,6 +31,8 @@ a 2^32-bit filter.
 """
 
 import argparse
+import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -45,6 +51,8 @@ K1_SHAPES = [(1 << 26, 24), (1 << 20, 24)]
 # (keys, w) whose windows K3 compacts: the main path's segment and the
 # refinement shapes of K2_SHAPES
 K3_SHAPES = [(1 << 26, 1000), (12_102, 250), (3_370, 100), (3_370, 10)]
+# codes the unpack restores: the main path's group and the JAX package's
+UNPACK_SHAPES = [1 << 26, (1 << 26) + 24]
 # (row, keys, bits, mask of the keys' bits or None): K5's rows
 K5_ROWS = [("insert", 1 << 26, 32, None), ("cascade", 1 << 26, 32, None),
            ("single_cell_2^16", 1 << 22, 16, None),
@@ -107,7 +115,7 @@ def main(argv=None) -> int:
            "nvidia_smi": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                capture_output=True, text=True, timeout=60).stdout.strip(),
-           "k1": [], "k2": [], "k3": [], "k4": [], "k5": []}
+           "k1": [], "k2": [], "k3": [], "k4": [], "k5": [], "unpack": []}
     codes_np = rng.integers(0, 4, (1 << 26) + 23, dtype=np.uint8)
     codes_np[rng.random(codes_np.shape[0]) < 0.001] = 4
     codes = torch.from_numpy(codes_np).to(dev)
@@ -117,6 +125,7 @@ def main(argv=None) -> int:
         reps = args.reps if n < 1 << 26 else 10
         out["k1"].append(dict(kmers=n, k=k, ms=device_ms(fns, reps),
                               wrapper_ms=cuda_time_ms(fns[0], reps)))
+    bit_legit = "legit_offset" in inspect.signature(sketch_device.compact_minimizers).parameters
     for n, w in K3_SHAPES:
         key = nthash.hash_kmers(codes[: n + 23], 24, n)[0]
         arg, minv = winmin.window_argmin(key, w)
@@ -125,17 +134,32 @@ def main(argv=None) -> int:
         legit_np = np.ones(nw, dtype=bool)
         for gap in rng.integers(0, max(nw - 2000, 1), max(nw >> 20, 2)):
             legit_np[gap : gap + 1024] = False
+        if bit_legit:
+            legit_np = np.packbits(legit_np, bitorder="little")
         legit = torch.from_numpy(legit_np).to(dev)
         m = sketch_device.compact_minimizers(arg, minv, legit)[0].shape[0]
         reps = args.reps if n < 1 << 26 else 10
         out["k3"].append(dict(
-            keys=n, w=w, windows=nw, minimizers=m,
+            keys=n, w=w, windows=nw, minimizers=m, legit="bits" if bit_legit else "bytes",
             ms=device_ms(k3_device_fn(torch, sketch_device, arg, minv, legit), reps),
             wrapper_ms=cuda_time_ms(lambda: sketch_device.compact_minimizers(arg, minv, legit),
                                     reps)))
         del arg, minv, legit
     del codes
     torch.cuda.empty_cache()
+    if importlib.util.find_spec("ntsynt_tpu_torch.ops.unpack") is not None:
+        from ntsynt_tpu_torch.io import fasta as fio
+        from ntsynt_tpu_torch.ops import unpack
+
+        for n in UNPACK_SHAPES:
+            src = codes_np[:n]  # one contig, code 4 past it
+            p2, nb = (torch.from_numpy(a).to(dev) for a in fio.pack_stream(
+                src, np.zeros(1, np.int64), np.array([len(src)]), np.zeros(1, np.int64), n))
+            dst = unpack.unpack(p2, nb)
+            out["unpack"].append(dict(
+                codes=n, ms=device_ms(lambda: unpack.unpack(p2, nb, dst), args.reps),
+                wrapper_ms=cuda_time_ms(lambda: unpack.unpack(p2, nb, dst), args.reps)))
+            del p2, nb, dst
     for n, w in K2_SHAPES:
         keys = big[:n].clone()
         reps = args.reps if n < 1 << 20 else 5

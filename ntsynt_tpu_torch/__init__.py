@@ -5,7 +5,8 @@ minimizer sketching -> common-k-mer Bloom filter -> minimizer graph ->
 linear synteny paths -> refinement rounds -> collinear merging, with the
 hot loops as hand-written CUDA kernels for Hopper (``csrc/*.cu``: k-mer
 hashing, window argmin, minimizer compaction, Bloom-filter insert and
-binned sweep) and plain PyTorch versions of each kernel for CPU tensors.
+binned sweep, and the unpack of the packed code-stream upload) and plain
+PyTorch versions of each kernel for CPU tensors.
 
 Entry points take an explicit ``device``; the default is ``"cuda"``, and
 asking for CUDA on a machine without it raises instead of falling back.

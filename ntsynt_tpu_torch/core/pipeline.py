@@ -17,14 +17,15 @@ everything. A .bf is a resume stub unless ``bf_artifact="full"``.
 Per-stage wall-clock is recorded and written to <prefix>.time.tsv under
 --benchmark.
 
-Each genome's code stream is laid out and uploaded to the device when
-its cascade level starts, and serves both the Bloom-filter cascade and
-the sketch; when the cascade's levels and every stream would not fit on
+Each genome's code stream goes to the device when its cascade level
+starts, packed a group at a time (ops/sketch.DeviceStream; the cascade
+inserts each group as it lands), and serves both the Bloom-filter
+cascade and the sketch; when the cascade's levels and every stream would not fit on
 the card (``release_plan``), the streams of the large genomes are
 dropped after their levels and built again at their sketches. With
 ``use_mesh`` the filters and the sketches (the refinement rounds' too)
 go through parallel/mesh instead: each rank of the process group builds
-and uploads only its own slab of each stream. Every rank computes the
+and uploads only its own slab of each stream, packed likewise. Every rank computes the
 same blocks; ranks other than 0 read and write no artifact: rank 0
 decides every reuse and sends what it reuses to the other ranks, so all
 ranks join the same collectives.
@@ -81,13 +82,14 @@ def _write_bf_stub(path: str, bf, cfg) -> None:
 # port's numbers. The projected residency is two cascade levels plus
 # every genome's DeviceStream, a genome's file size standing in for its
 # bases (about 1.01 a base with line breaks) so that unread genomes stay
-# unread. A DeviceStream holds the uint8 code stream and the bool
-# legit-window mask, one byte a base each: 2.0 bytes a base (the JAX
-# stream keeps 1-bit legit words: 1.12). When the projection exceeds the
+# unread. A DeviceStream holds the unpacked uint8 code stream, one byte
+# a base, and the legit-window mask as bits, an eighth of a byte a base:
+# 1.125 bytes a base, as the JAX stream (its packed upload's pinned
+# staging buffers are host memory). When the projection exceeds the
 # budget, the streams of the genomes above the JAX rule's 505 MB line
 # are released as their level is done and rebuilt at their sketch (a
 # second layout and upload); otherwise every stream stays.
-STREAM_BYTES_PER_BASE = 2.0
+STREAM_BYTES_PER_BASE = 1.125
 RELEASE_LINE_BYTES = 505_000_000
 # The budget is the card's free memory (the driver's free bytes plus
 # what torch's allocator holds unused) less the sketch's per-segment
@@ -274,7 +276,8 @@ class NtSyntPipeline:
         ordered_names = sorted(names, key=lambda n: path_of[n])
         genomes.prefetch_async(ordered_names)
 
-        # one upload per genome, shared by the BF cascade and the sketch
+        # one upload per genome, shared by the BF cascade (which inserts
+        # its groups as they land) and the sketch
         streams = {}
 
         def _stream(name):
@@ -319,7 +322,7 @@ class NtSyntPipeline:
                         num_bits = bf_build.bf_size_bits(
                             [genomes[ordered_names[0]]], cfg.fpr, cfg.bf_bytes
                         )
-                        # each genome is laid out and uploaded when its
+                        # each genome is packed and uploaded when its
                         # level starts; a released stream is rebuilt at
                         # its sketch (_collect)
                         budget = stream_budget(self.device)
@@ -331,7 +334,7 @@ class NtSyntPipeline:
                             log(f"Releasing the streams of {sorted(drop)} after their "
                                 f"cascade levels (budget {budget} bytes)")
                         common_bf = bf_build.build_common_bf_from_device(
-                            [(n, lambda n=n: _stream(n).codes) for n in ordered_names],
+                            [(n, lambda n=n: _stream(n)) for n in ordered_names],
                             cfg.k, num_bits, self.device,
                             release=(lambda n: streams.pop(n, None)) if drop else None,
                         )

@@ -6,8 +6,11 @@
 // mask that the JAX package computes in XLA (_run_start_flag).
 //
 // Inputs per window j in [0, nw): its leftmost argmin position arg[j],
-// its min hash minv[j] (all-ones = no valid k-mer in the window) and
-// legit[j] (1 when the window lies inside one contig). A window is live
+// its min hash minv[j] (all-ones = no valid k-mer in the window) and its
+// legit bit (set when the window lies inside one contig): bit
+// legit_off + j of the little-endian bit array legit (byte b holds bits
+// 8b..8b+7, lowest first), so a segment or a mesh share may start at any
+// window of the stream's mask. A window is live
 // when legit and valid; it is flagged when it is live and starts a run
 // of the argmin sequence:
 //   flag[j] = live[j] && (j == 0 || !live[j-1] || arg[j] != arg[j-1]).
@@ -15,14 +18,16 @@
 // The argmin is monotone in j, and a position's live windows are one
 // contiguous range, so each selected position is written exactly once.
 //
-// Bound on the H100: memory. 8 + 8 + 1 bytes read per window and
-// 16 bytes written per selected position, at 3.35 TB/s.
+// Bound on the H100: memory. 8 + 8 bytes and one bit read per window
+// and 16 bytes written per selected position, at 3.35 TB/s.
 //
 // Design: one launch, a single-pass chained scan with decoupled
 // look-back (Merrill and Garland, 2016), written here.
 //   A block takes the next tile of TILE windows from a global ticket (so
 //   a tile only ever waits on tiles whose blocks are already running).
-//   Its legit bytes are staged in shared memory with 16-byte loads; each
+//   Its legit bits are staged in shared memory as 128 32-bit words, word
+//   q holding the tile's windows 32q..32q+31 (bit i = window 32q + i,
+//   assembled from five bytes at any bit offset, zero past nw); each
 //   warp owns 512 consecutive windows, and each lane loads two
 //   consecutive windows' arg and minv with one 16-byte load each, for
 //   eight steps of 64 windows, all issued before any is used. The window
@@ -100,10 +105,11 @@ __device__ long long look_back(unsigned long long* status, int64_t tile, int lan
 // one before that tile) it is that window's own value.
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     compact_kernel(const long long* arg, const long long* minv,
-                   const uint8_t* __restrict__ legit, int64_t nw,
+                   const uint8_t* __restrict__ legit, int64_t legit_off,
+                   int64_t legit_bytes, int64_t nw,
                    unsigned long long* __restrict__ scratch, long long* out_pos,
                    long long* out_hash) {
-  __shared__ uint4 leg[TILE / 16];
+  __shared__ uint32_t leg[TILE / 32];
   __shared__ long long warp_off[WARPS];
   __shared__ int64_t s_tile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -113,19 +119,19 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   const int64_t ntiles = (nw + TILE - 1) / TILE;
   const int64_t base = tile * TILE;
 
-  // legit, staged; arg and minv, two windows a lane per step
-  for (int q = threadIdx.x; q < TILE / 16; q += THREADS) {
-    int64_t g = base + 16 * (int64_t)q;
-    union {
-      uint4 v;
-      uint8_t b[16];
-    } u;
-    if (g + 16 <= nw) {
-      u.v = __ldg(reinterpret_cast<const uint4*>(legit + g));
-    } else {
-      for (int i = 0; i < 16; ++i) u.b[i] = g + i < nw ? legit[g + i] : 0;
+  // legit bits, staged; arg and minv, two windows a lane per step
+  for (int q = threadIdx.x; q < TILE / 32; q += THREADS) {
+    int64_t g = base + 32 * (int64_t)q;
+    uint32_t word = 0;
+    if (g < nw) {
+      int64_t bit = legit_off + g, b = bit >> 3;
+      unsigned long long v = 0;
+      for (int i = 0; i < 5; ++i)
+        if (b + i < legit_bytes) v |= (unsigned long long)__ldg(legit + b + i) << (8 * i);
+      word = (uint32_t)(v >> (bit & 7));
+      if (nw - g < 32) word &= (1u << (nw - g)) - 1u;
     }
-    leg[q] = u.v;
+    leg[q] = word;
   }
   const int64_t wbase = base + (int64_t)warp * WARP_WINDOWS;
   longlong2 a[STEPS], m[STEPS];
@@ -145,18 +151,19 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   bool prev_live = false;
   if (wbase > 0 && wbase <= nw) {
     prev_a = arg[wbase - 1];
-    prev_live = legit[wbase - 1] != 0 && minv[wbase - 1] != -1;
+    int64_t bit = legit_off + wbase - 1;
+    prev_live = ((legit[bit >> 3] >> (bit & 7)) & 1) != 0 && minv[wbase - 1] != -1;
   }
   __syncthreads();
 
-  const uint8_t* lb = reinterpret_cast<const uint8_t*>(leg) + warp * WARP_WINDOWS;
+  const uint32_t* lw = leg + warp * (WARP_WINDOWS / 32);
   unsigned b0[STEPS], b1[STEPS];
   long long count = 0;
 #pragma unroll
   for (int j = 0; j < STEPS; ++j) {
-    unsigned l2 = *reinterpret_cast<const uint16_t*>(lb + 64 * j + 2 * lane);
-    bool live0 = (l2 & 0xFF) != 0 && m[j].x != -1;
-    bool live1 = (l2 >> 8) != 0 && m[j].y != -1;
+    unsigned l2 = (lw[2 * j + (lane >> 4)] >> ((2 * lane) & 31)) & 3u;
+    bool live0 = (l2 & 1u) != 0 && m[j].x != -1;
+    bool live1 = (l2 & 2u) != 0 && m[j].y != -1;
     long long up_a = __shfl_up_sync(FULL, a[j].y, 1);
     bool up_live = __shfl_up_sync(FULL, (int)live1, 1) != 0;
     if (lane == 0) {
@@ -217,18 +224,21 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 // One launch, after clearing scratch: 2 + ceil(nw / TILE) 64-bit words
 // (ticket, total, tile status) on the stream. out_pos / out_hash: nw
 // entries each (they may be arg and minv), of which the first scratch[1]
-// hold the flagged windows. arg, minv and legit must be 16-byte aligned.
-extern "C" int ntsynt_compact(const void* arg, const void* minv, const void* legit, int64_t nw,
-                              void* scratch, void* out_pos, void* out_hash, void* stream) {
+// hold the flagged windows. arg and minv must be 16-byte aligned; legit
+// holds legit_bytes bytes, at least ceil((legit_off + nw) / 8).
+extern "C" int ntsynt_compact(const void* arg, const void* minv, const void* legit,
+                              int64_t legit_off, int64_t legit_bytes, int64_t nw, void* scratch,
+                              void* out_pos, void* out_hash, void* stream) {
   int64_t tiles = (nw + TILE - 1) / TILE;
   if (tiles <= 0 || tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)arg | (uintptr_t)minv | (uintptr_t)legit) & 15)
-    return (int)cudaErrorMisalignedAddress;
+  if (legit_off < 0 || legit_bytes * 8 < legit_off + nw) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)arg | (uintptr_t)minv) & 15) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(2 + tiles) * 8, s);
   if (e != cudaSuccess) return (int)e;
   compact_kernel<<<(unsigned)tiles, THREADS, 0, s>>>(
-      (const long long*)arg, (const long long*)minv, (const uint8_t*)legit, nw,
+      (const long long*)arg, (const long long*)minv, (const uint8_t*)legit, legit_off,
+      legit_bytes, nw,
       (unsigned long long*)scratch, (long long*)out_pos, (long long*)out_hash);
   return (int)cudaGetLastError();
 }

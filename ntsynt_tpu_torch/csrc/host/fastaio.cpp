@@ -1,6 +1,7 @@
 // Native FASTA reader/packer for ntsynt_tpu_torch: the JAX package's
-// csrc/fastaio.cpp, with its logic and C ABI unchanged, built for the
-// host it runs on (ops/_kernels.build_host: g++, no -march).
+// csrc/fastaio.cpp, built for the host it runs on
+// (ops/_kernels.build_host: g++, no -march). Its parse is unchanged; its
+// two upload helpers are fused into one (fastaio_pack_stream, below).
 //
 // Role: the host-side data loader feeding the sketching kernels —
 // the analog of the reference's threaded btllib SeqReader layer
@@ -205,59 +206,88 @@ void fastaio_free(void* h) {
   delete p;
 }
 
-// Host prep for the device upload (ops/sketch._Stream.codes):
-// lay the genome's contigs out at stream positions starts[i] inside a
-// padded buffer of `out_len` bytes (everything not covered by a contig is
-// the N/separator code 4). One parallel pass; replaces two 100 MB numpy
-// copies (np.concatenate + buf[:] assignment) per genome.
-void fastaio_build_stream(const uint8_t* codes, const int64_t* offsets,
-                          const int64_t* lengths, const int64_t* starts,
-                          int64_t n_contigs, uint8_t* out, int64_t out_len,
-                          int threads) {
-#if defined(_OPENMP)
-  if (threads > 0) omp_set_num_threads(threads);
-#endif
-#pragma omp parallel
-  {
-    // separators/padding: fill the gaps [prev_end, next_start) and the tail
-#pragma omp for schedule(static) nowait
-    for (int64_t i = 0; i <= n_contigs; ++i) {
-      int64_t gap_begin = (i == 0) ? 0 : starts[i - 1] + lengths[i - 1];
-      int64_t gap_end = (i == n_contigs) ? out_len : starts[i];
-      if (gap_end > gap_begin)
-        memset(out + gap_begin, 4, (size_t)(gap_end - gap_begin));
-    }
-#pragma omp for schedule(dynamic, 1)
-    for (int64_t i = 0; i < n_contigs; ++i)
-      memcpy(out + starts[i], codes + offsets[i], (size_t)lengths[i]);
-  }
-}
-
-// Planar 2-bit pack + planar N-bitmap of a code buffer (the JAX
-// package's device upload format, ntsynt_tpu/ops/sketch._pack_stream_host;
-// kept as copied, not bound: codes go to the card unpacked). n must be
-// divisible by 8. packed2 is n/4 bytes, nbits n/8 bytes.
-void fastaio_pack2_nbits(const uint8_t* stream, int64_t n, uint8_t* packed2,
-                         uint8_t* nbits, int threads) {
-#if defined(_OPENMP)
-  if (threads > 0) omp_set_num_threads(threads);
-#endif
-  const int64_t q = n / 4, m = n / 8;
-#pragma omp parallel
-  {
-#pragma omp for schedule(static) nowait
-    for (int64_t b = 0; b < q; ++b) {
-      packed2[b] = (uint8_t)((stream[b] & 3) | ((stream[b + q] & 3) << 2) |
-                             ((stream[b + 2 * q] & 3) << 4) |
-                             ((stream[b + 3 * q] & 3) << 6));
-    }
-#pragma omp for schedule(static)
-    for (int64_t b = 0; b < m; ++b) {
-      uint8_t v = 0;
-      for (int j = 0; j < 8; ++j) v |= (uint8_t)((stream[b + j * m] == 4) << j);
-      nbits[b] = v;
-    }
-  }
-}
-
 }  // extern "C"
+
+// The device upload's host side (ops/sketch.PackedUpload), the JAX
+// package's fastaio_build_stream + fastaio_pack2_nbits fused into one
+// OpenMP pass that never lays the 1-byte stream out: contig i
+// (codes[offsets[i], offsets[i] + lengths[i])) stands at stream position
+// starts[i] of an out_len-code buffer (out_len % 8 == 0; code 4 wherever
+// no contig stands), and the pass writes that buffer's planar packing
+// (ntsynt_tpu/ops/sketch._pack_stream_host / _pack_nbits_host):
+//   packed2[b] = codes b, b + q, b + 2q, b + 3q at bits 0, 2, 4, 6 (& 3),
+//     q = out_len / 4 (code 4 packs as 0);
+//   nbits[c] = bit j set where code c + j*m is 4, m = out_len / 8.
+// Plane j of the bitmap is positions [j*m, (j+1)*m), and packed2 byte c
+// (c < m) holds planes 0, 2, 4, 6 at c, byte m + c planes 1, 3, 5, 7.
+// So a block [c0, c1) of c is packed from the eight ranges
+// [j*m + c0, j*m + c1): each thread lays those out in a buffer of its
+// own (8 x BLOCK codes), which is itself the planar stream of the block.
+// Contigs must be sorted by start and must not overlap.
+namespace {
+
+constexpr int64_t PACK_BLOCK = 4096;
+
+// codes [lo, hi) of the stream into out (code 4 outside every contig)
+void layout_range(const uint8_t* codes, const int64_t* offsets, const int64_t* lengths,
+                  const int64_t* starts, int64_t n_contigs, int64_t lo, int64_t hi,
+                  uint8_t* out) {
+  // the last contig starting at or before lo, else the first
+  int64_t a = 0, b = n_contigs;
+  while (a < b) {
+    int64_t mid = (a + b) / 2;
+    if (starts[mid] <= lo) a = mid + 1; else b = mid;
+  }
+  int64_t i = a > 0 ? a - 1 : 0;
+  int64_t pos = lo;
+  for (; pos < hi && i < n_contigs; ++i) {
+    int64_t s = starts[i], e = starts[i] + lengths[i];
+    if (e <= pos) continue;
+    if (s >= hi) break;
+    if (s > pos) {
+      memset(out + (pos - lo), 4, (size_t)(s - pos));
+      pos = s;
+    }
+    int64_t stop = e < hi ? e : hi;
+    memcpy(out + (pos - lo), codes + offsets[i] + (pos - s), (size_t)(stop - pos));
+    pos = stop;
+  }
+  if (pos < hi) memset(out + (pos - lo), 4, (size_t)(hi - pos));
+}
+
+}  // namespace
+
+extern "C" void fastaio_pack_stream(const uint8_t* codes, const int64_t* offsets,
+                         const int64_t* lengths, const int64_t* starts, int64_t n_contigs,
+                         int64_t out_len, uint8_t* packed2, uint8_t* nbits, int threads) {
+#if defined(_OPENMP)
+  if (threads > 0) omp_set_num_threads(threads);
+#endif
+  const int64_t m = out_len / 8;
+  const int64_t n_blocks = (m + PACK_BLOCK - 1) / PACK_BLOCK;
+#pragma omp parallel
+  {
+    std::vector<uint8_t> buf(8 * PACK_BLOCK);
+    uint8_t* t = buf.data();
+#pragma omp for schedule(static)
+    for (int64_t blk = 0; blk < n_blocks; ++blk) {
+      const int64_t c0 = blk * PACK_BLOCK;
+      const int64_t len = (m - c0) < PACK_BLOCK ? (m - c0) : PACK_BLOCK;
+      for (int j = 0; j < 8; ++j)
+        layout_range(codes, offsets, lengths, starts, n_contigs, j * m + c0, j * m + c0 + len,
+                     t + j * PACK_BLOCK);
+      for (int64_t c = 0; c < len; ++c) {
+        const uint8_t* p = t + c;
+        uint8_t v = 0;
+        for (int j = 0; j < 8; ++j) v |= (uint8_t)((p[j * PACK_BLOCK] == 4) << j);
+        nbits[c0 + c] = v;
+        packed2[c0 + c] = (uint8_t)((p[0] & 3) | ((p[2 * PACK_BLOCK] & 3) << 2) |
+                                    ((p[4 * PACK_BLOCK] & 3) << 4) |
+                                    ((p[6 * PACK_BLOCK] & 3) << 6));
+        packed2[m + c0 + c] = (uint8_t)((p[PACK_BLOCK] & 3) | ((p[3 * PACK_BLOCK] & 3) << 2) |
+                                        ((p[5 * PACK_BLOCK] & 3) << 4) |
+                                        ((p[7 * PACK_BLOCK] & 3) << 6));
+      }
+    }
+  }
+}

@@ -97,33 +97,45 @@ def _omp_threads(lib, threads: int):
         lib.omp_set_num_threads(prev)
 
 
-def build_stream(codes, offsets, lengths, starts, out_len: int, threads: int = 0) -> np.ndarray:
-    """An ``out_len``-byte uint8 buffer holding contig i
-    (``codes[offsets[i]:offsets[i] + lengths[i]]``) at ``starts[i]`` and
-    code 4 everywhere else, laid out in one native OpenMP pass
-    (fastaio_build_stream: the JAX package's pack_stream_native without
-    its 2-bit packing, which the card does not need)."""
+def pack_stream(codes, offsets, lengths, starts, out_len: int, threads: int = 0, out=None):
+    """The device upload's packing of an ``out_len``-code stream (out_len
+    a multiple of 8) holding contig i (``codes[offsets[i]:offsets[i] +
+    lengths[i]]``) at ``starts[i]`` and code 4 everywhere else: planar
+    2-bit codes (uint8 [out_len / 4]) and a planar N bitmap (uint8
+    [out_len / 8]), the JAX package's pack_stream_native
+    (ntsynt_tpu/io/fasta.py). The host library packs in one OpenMP pass
+    that never lays the 1-byte stream out (fastaio_pack_stream). out:
+    optional (packed2, nbits) uint8 arrays of those sizes to write into
+    (a pinned staging buffer's views). Returns (packed2, nbits)."""
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     lengths = np.ascontiguousarray(lengths, dtype=np.int64)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
     n = len(lengths)
     if len(offsets) != n or len(starts) != n:
-        raise ValueError("build_stream: offsets, lengths and starts differ in length")
+        raise ValueError("pack_stream: offsets, lengths and starts differ in length")
+    if out_len < 0 or out_len % 8:
+        raise ValueError(f"pack_stream: out_len {out_len} is not a multiple of 8")
     ends = starts + lengths
     if n and (
         (lengths < 0).any() or (offsets < 0).any() or (offsets + lengths > len(codes)).any()
         or starts[0] < 0 or (starts[1:] < ends[:-1]).any() or ends[-1] > out_len
     ):
-        raise ValueError("build_stream: contigs out of range or overlapping")
-    out = np.empty(out_len, dtype=np.uint8)
+        raise ValueError("pack_stream: contigs out of range or overlapping")
+    if out is None:
+        out = (np.empty(out_len // 4, np.uint8), np.empty(out_len // 8, np.uint8))
+    packed2, nbits = out
+    if (packed2.dtype != np.uint8 or nbits.dtype != np.uint8 or packed2.shape != (out_len // 4,)
+            or nbits.shape != (out_len // 8,) or not packed2.flags.c_contiguous
+            or not nbits.flags.c_contiguous):
+        raise ValueError("pack_stream: out must be contiguous uint8 [out_len/4], [out_len/8]")
     lib = _native_lib()
     with _omp_threads(lib, threads):
-        lib.fastaio_build_stream(
+        lib.fastaio_pack_stream(
             codes.ctypes.data, offsets.ctypes.data, lengths.ctypes.data, starts.ctypes.data,
-            n, out.ctypes.data, out_len, threads,
+            n, out_len, packed2.ctypes.data, nbits.ctypes.data, threads,
         )
-    return out
+    return packed2, nbits
 
 
 def _read_fasta_native(path: str, keep_raw: bool, lib, threads: int = 0) -> PackedGenome | None:

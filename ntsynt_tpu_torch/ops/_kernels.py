@@ -42,10 +42,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES = {"nthash": 0, "winmin": 0, "compact": 0, "bf_insert": 0, "bf_sweep": 0}
+LAUNCHES = {"nthash": 0, "winmin": 0, "compact": 0, "bf_insert": 0, "bf_sweep": 0, "unpack": 0}
 # per kernel, the sizes of every counted launch: nthash (n_kmers, k),
 # winmin (n, w), compact (nw,), bf_insert (n, bits_log2), bf_sweep
-# (n, bits_log2, "insert" | "cascade")
+# (n, bits_log2, "insert" | "cascade"), unpack (n_codes,)
 SHAPES = {name: [] for name in LAUNCHES}
 
 HOST_SRC = os.path.join(CSRC, "host")
@@ -68,8 +68,11 @@ _SIGNATURES = {
     # keys, n, w, tile, g, tw, cs, arg, minv, stream
     "ntsynt_winmin": [_P, _I64, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       _P, _P, _P],
-    # arg, minv, legit, nw, scratch, out_pos, out_hash, stream
-    "ntsynt_compact": [_P, _P, _P, _I64, _P, _P, _P, _P],
+    # arg, minv, legit bits, legit bit offset, legit bytes, nw, scratch, out_pos, out_hash,
+    # stream
+    "ntsynt_compact": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
+    # packed2, nbits, n, out, stream
+    "ntsynt_unpack": [_P, _P, _I64, _P, _P],
     # words, canon, valid, n, bits_log2, stream
     "ntsynt_bf_insert": [_P, _P, _P, _I64, ctypes.c_int, _P],
     # canon, valid, n, bits_log2, cell_log2, counts, stream
@@ -112,8 +115,8 @@ _HOST_SIGNATURES = {
     "fastaio_raw": (_U8P, [_P]),
     "fastaio_names": (ctypes.POINTER(ctypes.c_char), [_P]),
     "fastaio_free": (None, [_P]),
-    # codes, offsets, lengths, starts, n_contigs, out, out_len, threads
-    "fastaio_build_stream": (None, [_P, _P, _P, _P, _I64, _P, _I64, ctypes.c_int]),
+    # codes, offsets, lengths, starts, n_contigs, out_len, packed2, nbits, threads
+    "fastaio_pack_stream": (None, [_P, _P, _P, _P, _I64, _I64, _P, _P, ctypes.c_int]),
     # nxt, du, dv, poison, starts, n_starts, m2, out_nodes, out_offsets, out_cap
     "graphwalk_chains": (_I64, [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64]),
     # the OpenMP runtime the library links (the calling thread's ICV)

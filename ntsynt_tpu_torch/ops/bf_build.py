@@ -9,7 +9,8 @@ intersection of all genomes. For a one-hash filter that equals, bit for
 bit: insert the genome's whole k-mer set into a fresh level, then AND it
 with the previous level (bit b survives iff some k-mer of this genome
 maps to b and the previous level holds b). Each level is K1 (hash) + an
-insert over the genome's device-resident stream, then a dense AND. The
+insert over the genome's device-resident stream, taken a group at a time
+as its packed upload lands (ops/sketch.PackedUpload), then a dense AND. The
 insert is K4 (atomic OR), or K5 (the binned sweep, ops/bf_sweep) when
 ``NTSYNT_BF_SWEEP`` asks for it and the filter has at most 2^32 bits.
 
@@ -21,10 +22,10 @@ the result (``repeat_segment_update``).
 
 import math
 
-import numpy as np
 import torch
 
 from . import bf_sweep, bloom, nthash
+from .sketch import PackedUpload, _Stream
 from .. import resolve_device
 from ..utils import log
 
@@ -55,24 +56,29 @@ def bf_size_bits(genomes, fpr: float, bf_bytes: int | None = None) -> int:
     return bits
 
 
-def insert_stream(bf, codes: torch.Tensor, k: int, sweep: bool = False) -> None:
+def insert_stream(bf, codes, k: int, sweep: bool = False) -> None:
     """Insert every valid k-mer of a device code stream into bf, through
-    K5 when sweep is set, else K4."""
-    n_kmers = max(codes.shape[0] - k + 1, 0)
-    for s in range(0, n_kmers, SEG_KMERS):
-        m = min(SEG_KMERS, n_kmers - s)
-        _, canon, valid = nthash.hash_kmers(codes[s : s + m + k - 1], k, m)
-        if sweep:
-            bf_sweep.insert_segment(bf.words, canon, valid, bf.bits_log2)
-        else:
-            bf.insert(canon, valid)
+    K5 when sweep is set, else K4, SEG_KMERS k-mers a launch. codes: a
+    PackedUpload, whose groups are inserted each as it lands (the JAX
+    package's bf_groups walk; with groups of whole segments the launches
+    are a whole stream's)."""
+    for view in codes.groups():
+        n_kmers = max(view.shape[0] - k + 1, 0)
+        for s in range(0, n_kmers, SEG_KMERS):
+            m = min(SEG_KMERS, n_kmers - s)
+            _, canon, valid = nthash.hash_kmers(view[s : s + m + k - 1], k, m)
+            if sweep:
+                bf_sweep.insert_segment(bf.words, canon, valid, bf.bits_log2)
+            else:
+                bf.insert(canon, valid)
 
 
 def build_common_bf_from_device(entries, k: int, num_bits: int, device,
                                 release=None) -> bloom.BloomFilter:
     """Cascade over [(name, get) ...], already in the reference's
-    lexicographic path order: get() returns the genome's uint8 code
-    stream on the device, and is called only when that genome's level
+    lexicographic path order: get() returns the genome's code stream on
+    the device (as insert_stream takes it: a DeviceStream, whose groups
+    are inserted as they land), and is called only when that genome's level
     starts, so a caller reading genomes ahead on another thread overlaps
     genome i+1's read with level i. Any stream layout with at least k-1
     code-4 separators between contigs inserts exactly the genome's k-mer
@@ -102,31 +108,11 @@ def build_common_bf_from_device(entries, k: int, num_bits: int, device,
     return bf
 
 
-def stream_buffer(genome, k: int, codes: np.ndarray | None = None) -> np.ndarray:
-    """Contigs joined by k-1 N codes: the genome's k-mer set as a stream."""
-    src = genome.codes if codes is None else codes
-    sep = np.full(k - 1, 4, dtype=np.uint8)
-    parts = []
-    for i in range(genome.n_contigs):
-        o, ln = int(genome.offsets[i]), int(genome.lengths[i])
-        parts += [src[o : o + ln], sep]
-    return np.concatenate(parts) if parts else np.zeros(0, np.uint8)
-
-
-def segmented_stream(genome, k: int, chunk: int):
-    """The JAX package's segment layout (ntsynt_tpu/ops/bf_build
-    _stream_buffer): stream_buffer padded with N codes so that every
-    segment [i*chunk, i*chunk + chunk + k - 1) is in range. Returns
-    (host buffer uint8, n_segments); (None, 0) for a genome with no
-    k-mer."""
-    stream = stream_buffer(genome, k)
-    n_kmers = max(len(stream) - k + 1, 0)
-    if n_kmers == 0:
-        return None, 0
-    n_segs = -(-n_kmers // chunk)
-    buf = np.full(n_segs * chunk + k - 1, 4, dtype=np.uint8)
-    buf[: len(stream)] = stream
-    return buf, n_segs
+def kmer_stream(genome, k: int, device, hi: int | None = None) -> PackedUpload:
+    """The genome's k-mer set as a stream on device: contigs each followed
+    by k-1 N codes (k-mers over a separator are invalid), codes [0, hi)
+    (N codes past the contigs; all of them by default), sent packed."""
+    return PackedUpload(_Stream(genome, k, 1, sep=k - 1), device, hi=hi)
 
 
 def build_common_bf(genomes, k: int, fpr: float = 0.025, bf_bytes=None, device="cuda"):
@@ -135,9 +121,7 @@ def build_common_bf(genomes, k: int, fpr: float = 0.025, bf_bytes=None, device="
     device = resolve_device(device)
     ordered = sorted(genomes, key=lambda g: g.path)
     num_bits = bf_size_bits(genomes, fpr, bf_bytes)
-    entries = [
-        (g.name, lambda g=g: torch.from_numpy(stream_buffer(g, k)).to(device)) for g in ordered
-    ]
+    entries = [(g.name, lambda g=g: kmer_stream(g, k, device)) for g in ordered]
     return build_common_bf_from_device(entries, k, num_bits, device)
 
 
@@ -176,10 +160,14 @@ def build_repeat_bf(genomes, k: int, fpr: float = 0.01, bf_bytes=None,
     num_bits = bf_size_bits(genomes, fpr, bf_bytes)
     rep = bloom.BloomFilter(num_bits, k, device=device)
     for genome in genomes:
-        buf, n_segs = segmented_stream(genome, k, chunk)
-        if buf is None:
+        # the JAX package's segment layout (ntsynt_tpu/ops/bf_build
+        # _stream_buffer): every segment [i*chunk, i*chunk + chunk + k - 1)
+        # in range, N codes past the genome's k-mers
+        n_kmers = max(genome.total_bases + genome.n_contigs * (k - 1) - k + 1, 0)
+        if n_kmers == 0:
             continue
-        codes = torch.from_numpy(buf).to(device)
+        n_segs = -(-n_kmers // chunk)
+        codes = kmer_stream(genome, k, device, hi=n_segs * chunk + k - 1).codes
         seen = bloom.BloomFilter(num_bits, k, device=device)
         for i in range(n_segs):
             s = i * chunk

@@ -5,10 +5,16 @@ The torch counterpart of the JAX package's mesh layer
 contiguous slab per rank, and the only global state, the Bloom-filter
 words and the minimizer selections, is combined with collectives:
 
-  * each rank lays out and uploads only its own slab of the stream, with
-    the halo its last k-mers or windows need (``_Stream.slice``);
+  * each rank packs and uploads only its own slab of the stream, with
+    the halo its last k-mers or windows need, in the single-device
+    path's wire format (ops/sketch.PackedUpload: planar 2-bit codes and
+    an N bitmap, 0.375 bytes a code, unpacked on the card), as the JAX
+    mesh's ``_pack_rows``/``_unpack_row`` do; the sketch's legit mask
+    goes up as the bytes of the rank's share of the stream's legit bits,
+    with the share's bit offset;
   * per rank, the slab goes through the kernels of the single-device
-    path: K1 and K4 for the common filter; K1, a probe,
+    path: K1 and K4 for the common filter, on each group of the slab as
+    it lands; K1, a probe,
     ``first_occurrence`` and K4 for the repeat walk; K1, the probes, K2
     and K3 for the sketch;
   * Bloom-filter words are combined by a bitwise-OR all-reduce. Neither
@@ -29,12 +35,11 @@ tensors, so card tensors are staged through host memory (the compute
 stays on the card). A rank with no share of a genome still joins every
 collective.
 
-The JAX package's 2-bit packed uploads (``_pack_rows``/``_unpack_row``),
-its fixed-shape segments with their overflow recompute and its
-first-legit-window fix-up have no counterpart: each rank owns its
-tensors, the port's single-device upload does not pack, and K3 compacts
-into a buffer as long as its windows (it cannot overflow) and itself
-flags the first live window after one that is not live.
+The JAX mesh's [D, L] rows of packed slabs, its fixed-shape segments
+with their overflow recompute and its first-legit-window fix-up have no
+counterpart: each rank owns its tensors and uploads its own slab, and K3
+compacts into a buffer as long as its windows (it cannot overflow) and
+itself flags the first live window after one that is not live.
 """
 
 import numpy as np
@@ -195,7 +200,8 @@ def _allreduce_dup(once: torch.Tensor, mesh: Mesh | None = None):
 
 
 def _upload(stream, lo: int, hi: int, device) -> torch.Tensor:
-    return torch.from_numpy(stream.slice(lo, hi)).to(device)
+    """Codes [lo, hi) of stream on device, sent packed."""
+    return sketch_ops.PackedUpload(stream, device, lo, hi).codes
 
 
 def distributed_common_bf(genomes, k: int, fpr: float = 0.025, mesh: Mesh | None = None,
@@ -223,7 +229,8 @@ def distributed_common_bf(genomes, k: int, fpr: float = 0.025, mesh: Mesh | None
         level = bloom.BloomFilter(num_bits, k, device=mesh.device)
         lo, hi = mesh.share(n_kmers)
         if hi > lo:
-            bf_build.insert_stream(level, _upload(stream, lo, hi + k - 1, mesh.device), k)
+            bf_build.insert_stream(
+                level, sketch_ops.PackedUpload(stream, mesh.device, lo, hi + k - 1), k)
         own = allreduce_or(level.words, mesh)
         del level
         prev = (own & prev) if gi > 0 else own
@@ -303,14 +310,14 @@ def sharded_sketch_dispatch(genome, k: int, w: int, mesh: Mesh | None = None,
     overlaps i+1's sketch."""
     mesh = mesh or make_mesh()
     stream = sketch_ops._Stream(genome, k, w, codes=codes)
-    legit = stream.legit_windows()
-    lo, hi = mesh.share(len(legit))
+    bits = stream.legit_bits()
+    lo, hi = mesh.share(stream.n_windows)
     pos, hsh = np.zeros(0, np.int64), np.zeros(0, np.uint64)
-    if hi > lo and legit[lo:hi].any():
+    if sketch_ops.bits_any(bits, lo, hi):
         pos, hsh = sketch_stream(
             _upload(stream, lo, hi + w + k - 2, mesh.device),
-            torch.from_numpy(legit[lo:hi]).to(mesh.device), k, w,
-            common_bf=common_bf, repeat_bf=repeat_bf, seg=seg_max)
+            torch.from_numpy(bits[lo >> 3 : -(-hi // 8)]).to(mesh.device), k, w,
+            common_bf=common_bf, repeat_bf=repeat_bf, seg=seg_max, legit_offset=lo & 7)
         pos = pos + lo  # int64 stream offsets
     handle = dict(genome=genome, k=k, w=w, codes=codes, stream=stream, common_bf=common_bf,
                   repeat_bf=repeat_bf, local=(pos, hsh), gather=None)

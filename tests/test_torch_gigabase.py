@@ -37,8 +37,9 @@ K, W = 24, 100
 # ---------------------------------------------------------------------------
 
 SIZES = {"a.fa": 600_000_000, "b.fa": 400_000_000, "c.fa": 1_000_000_000}
-# two 2^33-bit levels (2 x 1 GiB) plus 2.0 bytes a file byte of each genome
-RESIDENT = 2 * GIB + 2 * 2_000_000_000
+# two 2^33-bit levels (2 x 1 GiB) plus 1.125 bytes a file byte of each
+# genome (STREAM_BYTES_PER_BASE: unpacked codes and legit bits)
+RESIDENT = 2 * GIB + 2_250_000_000
 
 
 @pytest.mark.parametrize("budget,released", [
@@ -55,7 +56,7 @@ def test_release_plan_line_and_levels():
     """The line is strict (505,000,000 bytes stays), and the levels count:
     the same streams fit beside 2^30-bit levels and not beside 2^34-bit."""
     sizes = {"x": 505_000_000, "y": 505_000_001}
-    streams = 2 * 1_010_000_001
+    streams = 568_125_000 + 568_125_001  # int(1.125 * size) each
     assert release_plan(sizes, 1 << 30, streams + (1 << 28)) == set()
     assert release_plan(sizes, 1 << 34, streams + (1 << 28)) == {"y"}
     assert release_plan({"z": 1}, 1 << 34, 0) == set()  # over, but nothing above the line
@@ -106,7 +107,7 @@ def test_cascade_calls_get_at_its_level_and_release_after(trio):
 
     def get(g):
         events.append(("get", g.name))
-        return torch.from_numpy(bf_build.stream_buffer(g, K))
+        return bf_build.kmer_stream(g, K, "cpu")
 
     def recording_insert(*a, **kw):
         events.append(("insert",))
@@ -292,24 +293,27 @@ def test_mesh_share_past_2_32(d):
 
 def test_mesh_slab_layout_past_2_32(monkeypatch):
     """A rank's slab starting past 2^32 asks the host packer for each
-    contig's piece at the right source offset and slab offset (the
-    packer is recorded, not run: the codes are never touched)."""
+    contig's piece at the right source offset and slab offset, padded to
+    a multiple of 8 codes (the packer is recorded, not run: the codes are
+    never touched)."""
     stub = _GenomeStub(LENGTHS)
     st = sketch_ops._Stream(stub, K, 1)  # the mesh's filter streams: w = 1
     starts = _starts(K + 1)
     calls = []
 
-    def record(src, offsets, lengths, at, out_len, threads=0):
+    def record(src, offsets, lengths, at, out_len, threads=0, out=None):
         calls.append((np.asarray(offsets).tolist(), np.asarray(lengths).tolist(),
                       np.asarray(at).tolist(), out_len))
-        return np.zeros(out_len, np.uint8)
+        for a in out:
+            a[:] = 0
+        return out
 
-    monkeypatch.setattr(sketch_ops.fio, "build_stream", record)
+    monkeypatch.setattr(sketch_ops.fio, "pack_stream", record)
     lo = int(starts[1]) + (1 << 31) - 10  # 10 bases before contig 1's end
     hi = int(starts[2]) + 1000
-    st.slice(lo, hi)
-    (offsets, lengths, at, out_len), = calls
-    assert out_len == hi - lo
+    assert pmesh._upload(st, lo, hi, torch.device("cpu")).shape == (hi - lo,)
+    (offsets, lengths, at, out_len), = calls  # one group
+    assert out_len == -(-(hi - lo) // 8) * 8
     assert offsets == [int(stub.offsets[1]) + (1 << 31) - 10, int(stub.offsets[2])]
     assert lengths == [13, 1000]
     assert at == [0, int(starts[2]) - lo]

@@ -1,7 +1,8 @@
 """The port's host library (csrc/host/*.cpp, built by
 ops/_kernels.build_host with g++) against the NumPy paths and the JAX
 package: the FASTA packer against the port's NumPy reader and both of
-the JAX package's readers, the stream layout against its NumPy form,
+the JAX package's readers, the packed stream layout against its NumPy
+form,
 and the chain walker, native and with NTSYNT_NO_NATIVE_WALK, against
 the JAX package's linear_paths. Also the build itself: two processes
 building into one fresh directory, and a failing compiler."""
@@ -23,7 +24,7 @@ from ntsynt_tpu.ops import sketch as jax_sketch
 from ntsynt_tpu_torch.graph import mxgraph
 from ntsynt_tpu_torch.graph.mxgraph import MinimizerGraph
 from ntsynt_tpu_torch.io import fasta as fio
-from ntsynt_tpu_torch.ops import _kernels
+from ntsynt_tpu_torch.ops import _kernels, unpack
 from ntsynt_tpu_torch.ops import sketch as torch_sketch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,7 +152,7 @@ def test_read_restores_the_thread_count(tmp_path):
 
 
 def _stream_numpy(genome, src, starts, total):
-    """_Stream.codes's NumPy form: the per-contig copy loop."""
+    """The stream layout's NumPy form: the per-contig copy loop."""
     buf = np.full(total, 4, dtype=np.uint8)
     for i in range(genome.n_contigs):
         o, ln = int(genome.offsets[i]), int(genome.lengths[i])
@@ -160,7 +161,7 @@ def _stream_numpy(genome, src, starts, total):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-def test_stream_codes_native_equal_numpy_and_jax(tmp_path, masked):
+def test_stream_codes_native_equal_numpy_and_jax(tmp_path, monkeypatch, masked):
     rng = np.random.default_rng(3)
     path = _random_fasta(tmp_path / "s.fa", rng, [40_000, 7, 0, 12_345, 150], 60)
     tg = fio.read_fasta(path)
@@ -172,22 +173,37 @@ def test_stream_codes_native_equal_numpy_and_jax(tmp_path, masked):
     k, w = 24, 100
     ts = torch_sketch._Stream(tg, k, w, codes=src)
     js = jax_sketch._Stream(jg, k, w, codes=src)
-    codes = ts.codes
-    assert codes.dtype == np.uint8 and len(codes) == ts.total
+    # the native packer's stream, unpacked (padded with code 4 to a
+    # multiple of 8), and as the grouped upload assembles it
+    n8 = -(-ts.total // 8) * 8
+    packed2, nbits = ts.pack(0, ts.total, n8)
+    codes = unpack.unpack_plain(torch.from_numpy(packed2), torch.from_numpy(nbits)).numpy()
+    assert codes.dtype == np.uint8 and len(codes) == n8 and (codes[ts.total:] == 4).all()
+    codes = codes[: ts.total]
     assert (codes == _stream_numpy(tg, tg.codes if src is None else src, ts.starts,
                                    ts.total)).all()
     assert (codes == js.codes).all()
+    monkeypatch.setattr(torch_sketch, "GROUP_KMERS", 4096)
+    up = torch_sketch.PackedUpload(ts, "cpu")
+    assert up.n_groups > 1 and (up.codes.numpy() == codes).all()
 
 
 def test_build_stream_rejects_bad_layouts():
+    """The stream packer (io/fasta.pack_stream, which lays the stream out
+    as it packs) refuses overlapping or out-of-range contigs and a length
+    that is not a multiple of 8."""
     codes = np.zeros(100, np.uint8)
     off, ln = np.array([0, 50]), np.array([50, 50])
-    assert len(fio.build_stream(codes, off, ln, np.array([0, 60]), 120)) == 120
-    for starts, out_len in (([0, 40], 120), ([0, 60], 100), ([-1, 60], 120)):
+    packed2, nbits = fio.pack_stream(codes, off, ln, np.array([0, 60]), 120)
+    assert len(packed2) == 30 and len(nbits) == 15
+    for starts, out_len in (([0, 40], 120), ([0, 60], 104), ([-1, 60], 120), ([0, 60], 116)):
         with pytest.raises(ValueError):
-            fio.build_stream(codes, off, ln, np.array(starts), out_len)
+            fio.pack_stream(codes, off, ln, np.array(starts), out_len)
     with pytest.raises(ValueError):
-        fio.build_stream(codes, off, np.array([50, 51]), np.array([0, 60]), 200)
+        fio.pack_stream(codes, off, np.array([50, 51]), np.array([0, 60]), 200)
+    with pytest.raises(ValueError):  # out of the wrong size
+        fio.pack_stream(codes, off, ln, np.array([0, 60]), 120,
+                        out=(np.empty(30, np.uint8), np.empty(14, np.uint8)))
 
 
 def test_thread_flags_reach_the_reader(tmp_path, monkeypatch):

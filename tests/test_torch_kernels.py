@@ -28,6 +28,11 @@ def _halves(u64: np.ndarray):
     return (u64 >> np.uint64(32)).astype(np.uint32), (u64 & U32).astype(np.uint32)
 
 
+def _bits(mask) -> torch.Tensor:
+    """A bool mask as K3's legit input: little-endian bits."""
+    return torch.from_numpy(np.packbits(np.asarray(mask, dtype=bool), bitorder="little"))
+
+
 def _u64(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint64)
 
@@ -140,7 +145,7 @@ def test_k3_compaction_matches_pallas():
     vals, hh, hl, cnt = (np.asarray(x) for x in (vals, hh, hl, cnt))
 
     arg, minv = winmin.window_argmin(torch.from_numpy(keys.view(np.int64)), w)
-    pos, hsh = sketch_device.compact_minimizers(arg, minv, torch.ones(nw, dtype=torch.bool))
+    pos, hsh = sketch_device.compact_minimizers(arg, minv, _bits(np.ones(nw, bool)))
     pos, hsh = pos.numpy(), _u64(hsh)
     assert (np.diff(pos) > 0).all()
     win = np.searchsorted(arg.numpy(), pos)  # first window of each selection
@@ -166,7 +171,7 @@ def test_k3_legit_mask_and_contig_starts():
     first legit window (the JAX package recomputes those on the host)."""
     arg = torch.tensor([3, 3, 3, 3, 7, 7, 9, 9], dtype=torch.int64)
     minv = torch.tensor([5, 5, 5, 5, 2, -1, 1, 1], dtype=torch.int64)
-    legit = torch.tensor([0, 0, 1, 1, 1, 1, 1, 0], dtype=torch.bool)
+    legit = _bits([0, 0, 1, 1, 1, 1, 1, 0])
     pos, hsh = sketch_device.compact_minimizers(arg, minv, legit)
     assert pos.tolist() == [3, 7, 9]
     assert hsh.tolist() == [5, 2, 1]
@@ -263,7 +268,7 @@ def test_cuda_kernels_match_plain():
         for a, b in zip(winmin.window_argmin(key, w), winmin.window_argmin_plain(key, w)):
             assert torch.equal(a, b)
     arg, minv = winmin.window_argmin(key, 1000)
-    legit = torch.from_numpy(rng.random(arg.shape[0]) < 0.9).cuda()
+    legit = _bits(rng.random(arg.shape[0]) < 0.9).cuda()
     for a, b in zip(sketch_device.compact_minimizers(arg, minv, legit),
                     sketch_device.compact_plain(arg, minv, legit)):
         assert torch.equal(a, b)

@@ -115,7 +115,7 @@ def test_digest_hashes_headers(tmp_path, monkeypatch):
     (tmp_path / "shared.cuh").write_text("#pragma once\n// edited\n")
     assert _kernels.source_digest() != with_header
     assert [os.path.basename(s) for s in _kernels.sources()] == [
-        "bf_insert.cu", "bf_sweep.cu", "compact.cu", "nthash.cu", "winmin.cu"
+        "bf_insert.cu", "bf_sweep.cu", "compact.cu", "nthash.cu", "unpack.cu", "winmin.cu"
     ]  # headers are hashed, not compiled
 
 

@@ -214,8 +214,16 @@ def tiled_compact_np(arg, minv, legit, tile):
     return pos, hsh
 
 
+def _bits(mask: np.ndarray, offset: int = 0) -> torch.Tensor:
+    """A bool mask as K3's legit input: little-endian bits, the mask's
+    first window at bit offset (the bits before it set)."""
+    return torch.from_numpy(np.packbits(np.concatenate([np.ones(offset, bool), mask]),
+                                        bitorder="little"))
+
+
 def _k3_cases(rng, tile):
-    """(label, arg, minv, legit) at the edges of K3's design."""
+    """(label, arg, minv, legit) at the edges of K3's design (legit as
+    a bool mask)."""
     cases = []
     for nw in (1, 2, tile - 1, tile, tile + 1, 3 * tile + 17):
         arg = np.maximum.accumulate(rng.integers(0, nw + 50, nw)).astype(np.int64)
@@ -245,7 +253,7 @@ def test_k3_tiled_scan_matches_plain():
     for label, arg, minv, legit in _k3_cases(rng, tile):
         pos, hsh = tiled_compact_np(arg, minv, legit, tile)
         ppos, phsh = sketch_device.compact_plain(
-            torch.from_numpy(arg), torch.from_numpy(minv), torch.from_numpy(legit))
+            torch.from_numpy(arg), torch.from_numpy(minv), _bits(legit))
         np.testing.assert_array_equal(pos, ppos.numpy(), err_msg=label)
         np.testing.assert_array_equal(hsh, phsh.numpy(), err_msg=label)
 
@@ -253,7 +261,7 @@ def test_k3_tiled_scan_matches_plain():
 def test_k3_writes_into_out_and_in_place():
     rng = np.random.default_rng(935)
     for label, arg, minv, legit in _k3_cases(rng, 256):
-        a, m, lg = torch.from_numpy(arg), torch.from_numpy(minv), torch.from_numpy(legit)
+        a, m, lg = torch.from_numpy(arg), torch.from_numpy(minv), _bits(legit)
         ref = sketch_device.compact_plain(a, m, lg)
         out = (torch.full((len(arg) + 3,), 7), torch.full((len(arg) + 3,), 7))
         got = sketch_device.compact_minimizers(a, m, lg, out=out)
@@ -334,9 +342,13 @@ def test_cuda_k3_matches_plain():
     cases.append(("2^24 windows", arg, rng.integers(-(1 << 62), 1 << 62, nw),
                   rng.random(nw) < 0.99))
     for label, arg, minv, legit in cases:
-        a, m, lg = (torch.from_numpy(x).cuda() for x in (arg, minv, legit))
+        a, m, lg = torch.from_numpy(arg).cuda(), torch.from_numpy(minv).cuda(), _bits(legit).cuda()
         got = sketch_device.compact_minimizers(a, m, lg)
         ref = sketch_device.compact_plain(a, m, lg)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), label
+        # the mask at an odd bit offset, as a mesh share reads it
+        got = sketch_device.compact_minimizers(a, m, _bits(legit, 5).cuda(), 5)
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), label
         # in place, as sketch_stream compacts

@@ -151,11 +151,14 @@ def test_kernel_sources_carry_their_notes():
 
     srcs = _kernels.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "bf_insert.cu", "bf_sweep.cu", "compact.cu", "nthash.cu", "winmin.cu"
+        "bf_insert.cu", "bf_sweep.cu", "compact.cu", "nthash.cu", "unpack.cu", "winmin.cu"
     ]
     for s in srcs:
         text = open(s).read()
-        assert "Replaces the Pallas TPU kernel" in text
+        # the unpack replaces an XLA op of the JAX package, the others its
+        # Pallas kernels
+        assert ("Replaces the XLA op" if s.endswith("unpack.cu")
+                else "Replaces the Pallas TPU kernel") in text
         assert "Bound on the H100" in text
         assert 'extern "C"' in text
         assert "torch/extension.h" not in text

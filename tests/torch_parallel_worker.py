@@ -21,7 +21,7 @@ def main():
     import torch.distributed as dist
 
     from ntsynt_tpu_torch.io.fasta import read_fasta
-    from ntsynt_tpu_torch.ops import bf_build
+    from ntsynt_tpu_torch.ops import bf_build, sketch
     from ntsynt_tpu_torch.ops.bloom import HostModBloomFilter, load_bf
     from ntsynt_tpu_torch.parallel import mesh as pmesh
     from ntsynt_tpu_torch.parallel import multihost
@@ -52,6 +52,7 @@ def main():
     res["bcast_host_bits"] = got.bits
 
     bf_build.SEG_KMERS = 1 << 9  # several K1/K4 launches a slab
+    sketch.GROUP_KMERS = 1 << 10  # several groups a slab, two segments each
     common = pmesh.distributed_common_bf([genome("cb.fa"), genome("ca.fa")], 20, fpr=0.025,
                                          mesh=mesh)
     res["common"] = common.words.numpy()
