@@ -11,6 +11,8 @@ import argparse
 import os
 import sys
 
+from .utils import StageTimer
+
 NTSYNT_TORCH_VERSION = "ntsynt-tpu-torch v0.1.0"
 
 ASCII = r"""
@@ -121,6 +123,20 @@ def build_parser():
 
 
 def main(argv=None):
+    # one timer for the whole call: its "setup" span runs from here to the
+    # pipeline's first stage
+    timer = StageTimer()
+    with timer.stage("setup"):
+        pipeline = _setup(argv, timer)
+    out = pipeline.run()
+    if out:
+        print(f"Done ntsynt-tpu-torch! Final blocks: {out}")
+    return 0
+
+
+def _setup(argv, timer):
+    """The pipeline that main runs: arguments parsed and checked, the
+    parameters echoed, the pipeline's modules imported."""
     parser = build_parser()
     args = parser.parse_args(argv)
     apply_divergence_presets(args, parser)
@@ -187,10 +203,7 @@ def main(argv=None):
         threads=args.t,
         use_mesh=args.mesh,
     )
-    out = NtSyntPipeline(cfg).run()
-    if out:
-        print(f"Done ntsynt-tpu-torch! Final blocks: {out}")
-    return 0
+    return NtSyntPipeline(cfg, timer=timer)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@ Like snakemake's mtime DAG, an existing sketch TSV newer than its fasta
 (and the common BF) is reused instead of re-sketched, and a fresh
 byte-complete .bf is loaded instead of rebuilt; --force recomputes
 everything. A .bf is a resume stub unless ``bf_artifact="full"``.
-Per-stage wall-clock is recorded and written to <prefix>.time.tsv under
---benchmark.
+Spans of the host work are recorded (utils/timer.py) and, under
+--benchmark, written to <prefix>.time.tsv and <prefix>.spans.tsv.
 
 Each genome's code stream goes to the device when its cascade level
 starts, packed a group at a time (ops/sketch.DeviceStream; the cascade
@@ -161,7 +161,9 @@ class PipelineConfig:
 class _LazyGenomes:
     """Dict-like name -> PackedGenome that reads each FASTA on first
     access (timed as a read_fasta:<name> stage, .fai emitted alongside);
-    ``prefetch_async`` reads them ahead on a background thread."""
+    ``prefetch_async`` reads them ahead on a background thread. Any other
+    thread that finds a genome unread times its wait for it as a
+    wait_read:<name> span, the read included when it reads it itself."""
 
     def __init__(self, runner, path_of: dict):
         self._runner = runner
@@ -171,12 +173,19 @@ class _LazyGenomes:
         # different genomes concurrently; a race on the same genome
         # serializes into one read
         self._locks = {n: threading.Lock() for n in path_of}
+        self._prefetch = None
 
     def __getitem__(self, name):
-        if name not in self._loaded:
-            with self._locks[name]:
-                if name in self._loaded:
-                    return self._loaded[name]
+        if name in self._loaded:
+            return self._loaded[name]
+        if threading.current_thread() is self._prefetch:
+            return self._read(name)
+        with self._runner.timer.stage(f"wait_read:{name}"):
+            return self._read(name)
+
+    def _read(self, name):
+        with self._locks[name]:
+            if name not in self._loaded:
                 runner, cfg = self._runner, self._runner.cfg
                 with runner.timer.stage(f"read_fasta:{name}"):
                     g = fio.read_fasta(self._paths[name], threads=cfg.threads)
@@ -192,7 +201,7 @@ class _LazyGenomes:
             for n in order:
                 self[n]
 
-        t = threading.Thread(target=run, daemon=True)
+        t = self._prefetch = threading.Thread(target=run, name="read_prefetch", daemon=True)
         t.start()
         return t
 
@@ -200,10 +209,14 @@ class _LazyGenomes:
 class NtSyntPipeline:
     """The full ntSynt-equivalent run on one torch device."""
 
-    def __init__(self, config: PipelineConfig):
+    def __init__(self, config: PipelineConfig, timer: StageTimer | None = None):
+        """``timer``: the StageTimer to record this run's spans in (the
+        CLI's, which also times its set-up); a new one by default."""
         self.cfg = config
         self.device = resolve_device(config.device)
-        self.timer = StageTimer(self.device, sample_memory=config.benchmark)
+        self.timer = timer or StageTimer()
+        if config.benchmark:
+            self.timer.track_memory(self.device)
         set_verbose(config.dev)
 
     def _artifact_fresh(self, artifact: str, *inputs) -> bool:
@@ -283,7 +296,7 @@ class NtSyntPipeline:
         def _stream(name):
             if name not in streams:
                 streams[name] = sketch_ops.DeviceStream(
-                    genomes[name], cfg.k, cfg.w, self.device
+                    genomes[name], cfg.k, cfg.w, self.device, timer=self.timer
                 )
             return streams[name]
 
@@ -408,12 +421,13 @@ class NtSyntPipeline:
             if not fresh:
                 # snakemake-style resume: reuse the sketch artifact
                 log(f"Reusing {tsv_path}")
-                records = sketch_tsv.read_sketch_tsv(tsv_path) if is_rank0 else None
-                if mesh is not None:
-                    records = pmesh.broadcast_object(records, mesh)
-                assemblies[name] = AssemblyMinimizers.from_tsv_records(
-                    name, records, genome=genomes[name]
-                )
+                with self.timer.stage(f"assembly:{name}"):
+                    records = sketch_tsv.read_sketch_tsv(tsv_path) if is_rank0 else None
+                    if mesh is not None:
+                        records = pmesh.broadcast_object(records, mesh)
+                    assemblies[name] = AssemblyMinimizers.from_tsv_records(
+                        name, records, genome=genomes[name]
+                    )
             else:
                 with self.timer.stage(f"sketch:{name}"):
                     handle = handles.pop(name, None) or _dispatch(name)
@@ -425,27 +439,33 @@ class NtSyntPipeline:
                         # the per-minimizer k-mer strings and the file
                         # write run on a background thread
                         def _write_tsv(sk=sk, g=genomes[name], tsv_path=tsv_path):
-                            recs = []
-                            for ci, cname in enumerate(sk.contig_names):
-                                mask = sk.contig_idx == ci
-                                seqs = g.kmer_strings(ci, sk.positions[mask], cfg.k)
-                                recs.append(
-                                    (cname, sk.hashes[mask], sk.positions[mask], seqs)
-                                )
-                            sketch_tsv.write_sketch_tsv(tsv_path, recs)
+                            with self.timer.stage(f"write.sketch_tsv:{g.name}"):
+                                recs = []
+                                for ci, cname in enumerate(sk.contig_names):
+                                    mask = sk.contig_idx == ci
+                                    seqs = g.kmer_strings(ci, sk.positions[mask], cfg.k)
+                                    recs.append(
+                                        (cname, sk.hashes[mask], sk.positions[mask], seqs)
+                                    )
+                                sketch_tsv.write_sketch_tsv(tsv_path, recs)
 
-                        t = threading.Thread(target=_write_tsv)
+                        t = threading.Thread(target=_write_tsv, name=f"write.sketch_tsv:{name}")
                         t.start()
                         artifact_threads.append(t)
-                assemblies[name] = AssemblyMinimizers.from_sketch(
-                    sk, genome=genomes[name], repeat_canon_filter=rep_filter
-                )
+                with self.timer.stage(f"assembly:{name}"):
+                    assemblies[name] = AssemblyMinimizers.from_sketch(
+                        sk, genome=genomes[name], repeat_canon_filter=rep_filter
+                    )
             log(f"{name}: {len(assemblies[name].mx_info.sorted_hash)} minimizers kept")
         streams.clear()
 
         # deferred full .bf saves overlap the (host) synteny stage
+        def _save(bf, path):
+            with self.timer.stage("write.bf"):
+                bf.save(path)
+
         for bf, path in to_save:
-            t = threading.Thread(target=bf.save, args=(path,))
+            t = threading.Thread(target=_save, args=(bf, path), name="write.bf")
             t.start()
             artifact_threads.append(t)
 
@@ -468,13 +488,14 @@ class NtSyntPipeline:
             device=str(self.device),
             mesh=mesh,
             write_output=is_rank0,
+            timer=self.timer,
         )
         with self.timer.stage("synteny"):
             out = SyntenyDetector(assemblies, params).run()
 
-        for t in artifact_threads:  # background artifact writes must land on disk
-            t.join()
-        if cfg.benchmark:
-            self.timer.write_tsv(f"{prefix}.time.tsv")
-            log("Stage timings:", self.timer.as_json())
+        with self.timer.stage("finish"):
+            for t in artifact_threads:  # background artifact writes must land on disk
+                t.join()
+            if cfg.benchmark:
+                self.timer.write_tsv(f"{prefix}.time.tsv", f"{prefix}.spans.tsv")
         return out

@@ -18,16 +18,15 @@ ascends — the property observed in every golden block — and block
 output lexicographically sorted (synteny_block.py:102-109).
 """
 
-import contextlib
 from dataclasses import dataclass
 import sys
-import time
+import threading
 
 import numpy as np
 
 from ..graph.mxgraph import MinimizerGraph
 from ..ops import sketch as sketch_ops
-from ..utils import log
+from ..utils import StageTimer, log
 from . import blocks as blk
 from . import refine as rf
 from .assembly import AssemblyMinimizers, filter_common, filter_segments_common
@@ -65,6 +64,9 @@ class SyntenyParams:
     # multi-process runs: every rank computes the same blocks, only
     # rank 0 writes the TSV and dot artifacts (parallel/multihost.py)
     write_output: bool = True
+    # records the run's spans (synteny.*, the re-sketches' uploads,
+    # write.dot); None: a timer of the run's own
+    timer: StageTimer | None = None
 
     def resolve_collinear_merge(self) -> int:
         """'<num>w' -> num * w, else bp int (bin/ntsynt_synteny.py:37-42)."""
@@ -78,16 +80,9 @@ class SyntenyParams:
         )
 
 
-@contextlib.contextmanager
-def _substage(label: str):
-    """--dev sub-stage wall print: the synteny stage is host-side NumPy
-    and grows with genome count x minimizer density; these splits make
-    the profile actionable without a profiler run."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        log(f"  [synteny] {label}: {time.perf_counter() - t0:.2f}s", dev_only=True)
+# queries from which _lookup sorts them once and joins every assembly
+# against the one sorted view (a synteny.lookup span)
+BATCH_LOOKUP = 1 << 18
 
 
 class SyntenyDetector:
@@ -104,6 +99,9 @@ class SyntenyDetector:
         self.files = sorted(assemblies.keys(), reverse=True)
         self.assemblies = {k: assemblies[k] for k in self.files}
         self.params = params
+        # host-side NumPy that grows with genome count x minimizer
+        # density: its synteny.* spans say which part costs the time
+        self.timer = params.timer or StageTimer()
         if params.n == 0:
             params.n = len(self.files)
         self.weights = {k: 1 for k in self.files}  # (:32)
@@ -132,8 +130,8 @@ class SyntenyDetector:
         queries."""
         hashes = np.asarray(hashes, dtype=np.uint64)
         ctgs, poss = [], []
-        if len(hashes) >= (1 << 18):
-            with _substage("    lookup(batch)"):
+        if len(hashes) >= BATCH_LOOKUP:
+            with self.timer.stage("synteny.lookup"):
                 g = self.graph
                 g._ensure_lookup()
                 sh = g._sorted_hash
@@ -188,10 +186,13 @@ class SyntenyDetector:
         self.graph (simplify_bubbles / filter_global) right after
         scheduling, and the artifact must capture the
         make_minimizer_graph output the reference emits."""
-        import threading
-
         g = self.graph  # snapshot before run() reassigns self.graph
-        t = threading.Thread(target=self.write_dot, args=(path, g))
+
+        def write():
+            with self.timer.stage("write.dot"):
+                self.write_dot(path, g)
+
+        t = threading.Thread(target=write, name="write.dot")
         t.start()
         return t
 
@@ -202,10 +203,9 @@ class SyntenyDetector:
         blocks_from_paths_batch) instead of per-path lookups."""
         log("Finding synteny blocks")
         rep_a = self.files.index(self.rep)
-        with _substage("  blocks_from_paths"):
-            out, removed = blk.blocks_from_paths_batch(
-                paths, self._lookup, rep_a, self.params.k, self.params.m
-            )
+        out, removed = blk.blocks_from_paths_batch(
+            paths, self._lookup, rep_a, self.params.k, self.params.m
+        )
         if len(removed):
             if self.params.dev:
                 log(
@@ -325,8 +325,6 @@ class SyntenyDetector:
         mask_ivs = rf.synteny_mask_intervals(blocks, n_asm, prev_w, p.k)
         terminal, internal, intervals = rf.find_mx_in_blocks(blocks, self.files)
 
-        import time as _time
-
         segments_per_asm = {}
         new_info = {}
         for a, key in enumerate(self.files):
@@ -336,70 +334,65 @@ class SyntenyDetector:
                     f"assembly {key} has no genome attached; refinement "
                     "rounds need the sequences to re-sketch"
                 )
-            t0 = _time.perf_counter()
             # sketch only the live (unmasked) material: condensed_genome
             # is window-semantics-equivalent to sketching the full
             # masked genome but ~10x smaller after the first round
-            cond, seg_ctg, seg_off = rf.condensed_genome(
-                asm.genome, mask_ivs[a], new_w, p.k
-            )
-            t_cond = _time.perf_counter() - t0
+            with self.timer.stage(f"synteny.condense:w{new_w}"):
+                cond, seg_ctg, seg_off = rf.condensed_genome(
+                    asm.genome, mask_ivs[a], new_w, p.k
+                )
             # generate_new_minimizers (bin/ntsynt_synteny.py:167-189):
             # 'Indexlr' passes the repeat BF to the sketcher (-r,
             # excluded from candidacy); 'Filter' re-sketches without it
             # and drops selected minimizers post-hoc via read_minimizers
             sketch_repeat = p.repeat_bf if p.repeat_filter != "Filter" else None
-            if p.mesh is not None:
-                from ..parallel import mesh as pmesh
+            with self.timer.stage(f"synteny.resketch:w{new_w}"):
+                if p.mesh is not None:
+                    from ..parallel import mesh as pmesh
 
-                sk = pmesh.sharded_sketch_genome(
-                    cond, p.k, new_w, mesh=p.mesh, common_bf=p.common_bf,
-                    repeat_bf=sketch_repeat,
+                    sk = pmesh.sharded_sketch_genome(
+                        cond, p.k, new_w, mesh=p.mesh, common_bf=p.common_bf,
+                        repeat_bf=sketch_repeat,
+                    )
+                else:
+                    sk = sketch_ops.sketch_genome(
+                        cond, p.k, new_w, common_bf=p.common_bf, repeat_bf=sketch_repeat,
+                        device=p.device, timer=self.timer,
+                    )
+                if p.repeat_filter == "Filter" and p.repeat_bf is not None:
+                    sk = sk.subset(~p.repeat_bf.probe_np(sk.canon))
+            with self.timer.stage(f"synteny.filter_mx:w{new_w}"):
+                # remap synthetic segments -> original (contig, position);
+                # read_minimizers semantics: drop within-assembly duplicates
+                tmp = AssemblyMinimizers.from_arrays(
+                    asm.key,
+                    asm.contig_names,
+                    sk.hashes,
+                    seg_ctg[sk.contig_idx],
+                    sk.positions + seg_off[sk.contig_idx],
+                    genome=asm.genome,
                 )
-            else:
-                sk = sketch_ops.sketch_genome(
-                    cond, p.k, new_w, common_bf=p.common_bf, repeat_bf=sketch_repeat,
-                    device=p.device,
+                per_ctg = []
+                ctg_of_list = []
+                for ci in range(len(tmp.contig_names)):
+                    h = tmp.lists[ci]
+                    if len(h) == 0:
+                        continue
+                    # positions come straight from the construction layout
+                    # (pos_lists is split alongside lists) — the previous
+                    # per-contig mx_info.lookup was 10^3+ binary-search
+                    # batches per assembly per round on real assemblies
+                    per_ctg.append((h, tmp.pos_lists[ci]))
+                    ctg_of_list.append(ci)
+                asm_intervals = {
+                    c: iv for (ai, c), iv in intervals.items() if ai == a
+                }
+                segments_per_asm[key] = rf.filter_new_minimizer_lists(
+                    per_ctg, internal, asm_intervals, ctg_of_list
                 )
-            if p.repeat_filter == "Filter" and p.repeat_bf is not None:
-                sk = sk.subset(~p.repeat_bf.probe_np(sk.canon))
-            t_sketch = _time.perf_counter() - t0
-            # remap synthetic segments -> original (contig, position);
-            # read_minimizers semantics: drop within-assembly duplicates
-            tmp = AssemblyMinimizers.from_arrays(
-                asm.key,
-                asm.contig_names,
-                sk.hashes,
-                seg_ctg[sk.contig_idx],
-                sk.positions + seg_off[sk.contig_idx],
-                genome=asm.genome,
-            )
-            per_ctg = []
-            ctg_of_list = []
-            for ci in range(len(tmp.contig_names)):
-                h = tmp.lists[ci]
-                if len(h) == 0:
-                    continue
-                # positions come straight from the construction layout
-                # (pos_lists is split alongside lists) — the previous
-                # per-contig mx_info.lookup was 10^3+ binary-search
-                # batches per assembly per round on real assemblies
-                per_ctg.append((h, tmp.pos_lists[ci]))
-                ctg_of_list.append(ci)
-            asm_intervals = {
-                c: iv for (ai, c), iv in intervals.items() if ai == a
-            }
-            segments_per_asm[key] = rf.filter_new_minimizer_lists(
-                per_ctg, internal, asm_intervals, ctg_of_list
-            )
-            new_info[key] = tmp.mx_info
-            log(
-                f"  {key}: condense {t_cond:.1f}s ({cond.total_bases} b), "
-                f"re-sketch {t_sketch - t_cond:.1f}s, "
-                f"filter {_time.perf_counter() - t0 - t_sketch:.1f}s, "
-                f"{sk.n_minimizers} new mx",
-                dev_only=True,
-            )
+                new_info[key] = tmp.mx_info
+            log(f"  {key}: {cond.total_bases} b condensed, {sk.n_minimizers} new mx",
+                dev_only=True)
 
         segments_per_asm = filter_segments_common(segments_per_asm)
 
@@ -417,6 +410,19 @@ class SyntenyDetector:
                 )
         return segments_per_asm, terminal
 
+    def extract_blocks(self, suffix: str = ""):
+        """Linear paths -> blocks -> indel and >=4-mx passes over the
+        current graph, each a synteny.* span (``suffix``: the refinement
+        round's ":w<w>")."""
+        with self.timer.stage(f"synteny.paths{suffix}"):
+            paths = self.graph.linear_paths()
+        with self.timer.stage(f"synteny.blocks{suffix}"):
+            blocks = self.paths_to_blocks(paths)
+        with self.timer.stage(f"synteny.indel_minmx{suffix}"):
+            blocks = self.indel_pass(blocks)
+            blocks = self.min_mx_pass(blocks, 4)
+        return blocks
+
     def refine_block_coordinates(self, blocks):
         """refine_block_coordinates (bin/ntsynt_synteny.py:476-530)."""
         p = self.params
@@ -424,12 +430,13 @@ class SyntenyDetector:
         ctx = self.block_ctx
         for new_w in p.w_rounds:
             log(f"Extending synteny blocks with w = {new_w}")
-            with _substage(f"gen_additional_mx w={new_w}"):
+            rnd = f":w{new_w}"
+            with self.timer.stage(f"synteny.new_mx{rnd}"):
                 segments, terminal = self.generate_additional_minimizers(
                     blocks, new_w, prev_w
                 )
             adj = [(k, segments[k]) for k in self.files]
-            with _substage(f"graph_build w={new_w}"):
+            with self.timer.stage(f"synteny.graph{rnd}"):
                 graph = MinimizerGraph.build(
                     adj, self.weights, seed=self.graph, black_list=terminal
                 )
@@ -438,30 +445,24 @@ class SyntenyDetector:
             # 484-491 simplifies self.graph, then reassigns self.graph
             # from `graph`), so simplification is a no-op in refinement
             # rounds; we mirror the net behavior.
-            if new_w == p.w_rounds[-1]:
-                log("Filtering the graph")
-                with _substage(f"filter+erosion w={new_w}"):
+            with self.timer.stage(f"synteny.filter{rnd}"):
+                if new_w == p.w_rounds[-1]:
+                    log("Filtering the graph")
                     self.graph, pairs = graph.filter_global(p.n, flag=True)
                     self.refine_graph_erosion(pairs)
-            else:
-                with _substage(f"filter_global w={new_w}"):
+                else:
                     self.graph = graph.filter_global(p.n)
-            with _substage(f"linear_paths+blocks w={new_w}"):
-                with _substage("  linear_paths"):
-                    paths = self.graph.linear_paths()
-                blocks = self.paths_to_blocks(paths)
-            with _substage(f"indel+minmx w={new_w}"):
-                blocks = self.indel_pass(blocks)
-                blocks = self.min_mx_pass(blocks, 4)
-            blocks_sorted = ctx.sorted_blocks(blocks)
-            if p.write_output:
-                ctx.write_blocks_tsv(
-                    f"{p.prefix}.pre-collinear-merge.synteny_blocks.tsv",
-                    blocks_sorted,
-                    p.z,
-                )
+            blocks = self.extract_blocks(rnd)
+            with self.timer.stage(f"synteny.write_blocks{rnd}"):
+                blocks_sorted = ctx.sorted_blocks(blocks)
+                if p.write_output:
+                    ctx.write_blocks_tsv(
+                        f"{p.prefix}.pre-collinear-merge.synteny_blocks.tsv",
+                        blocks_sorted,
+                        p.z,
+                    )
             if new_w == p.w_rounds[-1]:
-                with _substage("collinear_merge x2"):
+                with self.timer.stage(f"synteny.merge{rnd}"):
                     merged = blk.merge_collinear_blocks(
                         blocks_sorted, p.bp, p.k, self.collinear_merge_bp
                     )
@@ -472,9 +473,10 @@ class SyntenyDetector:
                 if p.dev:
                     self.check_non_overlapping(merged)
                 if p.write_output:
-                    ctx.write_blocks_tsv(
-                        f"{p.prefix}.synteny_blocks.tsv", merged, p.z, verbose=True
-                    )
+                    with self.timer.stage(f"synteny.write_blocks{rnd}"):
+                        ctx.write_blocks_tsv(
+                            f"{p.prefix}.synteny_blocks.tsv", merged, p.z, verbose=True
+                        )
             prev_w = new_w
         log("Done extended synteny blocks")
         log(f"Final synteny blocks can be found in: {p.prefix}.synteny_blocks.tsv")
@@ -541,42 +543,38 @@ class SyntenyDetector:
         if len(p.w_rounds) != len(set(p.w_rounds)):
             raise ValueError("duplicate values found in w_rounds!")
 
-        with _substage("filter_common"):
+        with self.timer.stage("synteny.filter_common"):
             filter_common(self.assemblies)
-        with _substage("make_minimizer_graph"):
+        with self.timer.stage("synteny.graph"):
             self.make_minimizer_graph()
         # the reference always emits the graph artifact from
         # make_minimizer_graph (expected-result listing, SURVEY.md §2.4)
         dot_thread = self.write_dot_async(f"{p.prefix}.mx.dot") if p.write_output else None
         if p.simplify_graph:
             log("Running graph simplification")
-            with _substage("simplify_bubbles"):
+            with self.timer.stage("synteny.simplify"):
                 self.graph = self.graph.simplify_bubbles(self.max_edge_weight)
-        with _substage("filter_global"):
+        with self.timer.stage("synteny.filter_global"):
             self.graph = self.graph.filter_global(p.n)
 
-        with _substage("linear_paths+blocks"):
-            with _substage("  linear_paths"):
-                paths = self.graph.linear_paths()
-            blocks = self.paths_to_blocks(paths)
-        with _substage("indel+minmx"):
-            blocks = self.indel_pass(blocks)
-            blocks = self.min_mx_pass(blocks, 4)
+        blocks = self.extract_blocks()
         if p.interarrivals and p.write_output:
             self.print_interarrivals(blocks)
-        blocks_sorted = self.block_ctx.sorted_blocks(blocks)
-        if not blocks_sorted:
-            raise RuntimeError(
-                "no paths found. Try adjusting the specified k/w parameters."
-            )
-        if p.write_output:
-            self.block_ctx.write_blocks_tsv(
-                f"{p.prefix}.synteny_blocks.tsv", blocks_sorted, p.z
-            )
+        with self.timer.stage("synteny.write_blocks"):
+            blocks_sorted = self.block_ctx.sorted_blocks(blocks)
+            if not blocks_sorted:
+                raise RuntimeError(
+                    "no paths found. Try adjusting the specified k/w parameters."
+                )
+            if p.write_output:
+                self.block_ctx.write_blocks_tsv(
+                    f"{p.prefix}.synteny_blocks.tsv", blocks_sorted, p.z
+                )
         log("Done initial synteny blocks")
 
         self.refine_block_coordinates(blocks)
         if dot_thread is not None:
-            dot_thread.join()
+            with self.timer.stage("synteny.dot_join"):
+                dot_thread.join()
         log("DONE!")
         return f"{p.prefix}.synteny_blocks.tsv"

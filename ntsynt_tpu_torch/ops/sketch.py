@@ -28,6 +28,7 @@ import torch
 from . import nthash, unpack
 from .. import resolve_device
 from ..io import fasta as fio
+from ..utils import StageTimer
 from .sketch_device import sketch_stream
 
 
@@ -174,13 +175,21 @@ class PackedUpload:
     that group's event: the host packs group g + 2 while the card works
     on group g. On the CPU the same groups go through plain copies and
     the plain unpack.
+
+    ``timer`` (a utils.StageTimer; a new one by default) records the host
+    side of each group as spans named for the genome: upload.pack:<name>
+    (the buffers on the first group, the pack, the copy and unpack
+    enqueued) and upload.wait:<name> (the wait for a staging buffer's
+    last copy).
     """
 
-    def __init__(self, stream: _Stream, device, lo: int = 0, hi: int | None = None):
+    def __init__(self, stream: _Stream, device, lo: int = 0, hi: int | None = None,
+                 timer: StageTimer | None = None):
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.stream, self.k, self.device = stream, stream.k, device
+        self.timer = timer or StageTimer()
         self.group = group = GROUP_KMERS
         self.lo = int(lo)
         self.n = max((stream.total if hi is None else int(hi)) - self.lo, 0)
@@ -194,6 +203,17 @@ class PackedUpload:
     def _send(self) -> None:
         """Pack, copy and unpack the next group."""
         g = self._sent
+        name = self.stream.genome.name
+        if self._host_free[g % 2] is not None:
+            with self.timer.stage(f"upload.wait:{name}"):
+                self._host_free[g % 2].synchronize()
+        with self.timer.stage(f"upload.pack:{name}"):
+            self._pack_and_copy(g)
+        self._sent += 1
+        if self._sent == self.n_groups:
+            self._host = self._stage = None
+
+    def _pack_and_copy(self, g: int) -> None:
         a = g * self.group
         b = self.n if g == self.n_groups - 1 else a + self.group
         n8, cuda = _round8(b - a), self.device.type == "cuda"
@@ -212,8 +232,6 @@ class PackedUpload:
                 with torch.cuda.stream(side):
                     self._stage = torch.empty(width, dtype=torch.uint8, device=self.device)
         host = self._host[g % 2]
-        if self._host_free[g % 2] is not None:
-            self._host_free[g % 2].synchronize()
         q, nb = n8 // 4, 3 * n8 // 8
         self.stream.pack(self.lo + a, self.lo + b, n8, out=(host[:q].numpy(), host[q:nb].numpy()))
         out = self._buf[a : a + n8]
@@ -229,9 +247,6 @@ class PackedUpload:
                 self._landed[-1].record(side)
         else:
             unpack.unpack(host[:q], host[q:nb], out=out)
-        self._sent += 1
-        if self._sent == self.n_groups:
-            self._host = self._stage = None
 
     def _wait(self, g: int) -> None:
         """The current stream waits until group g (and every one before
@@ -271,23 +286,25 @@ class DeviceStream(PackedUpload):
     cascade (``groups``) and the sketcher (``codes``, ``legit``): its
     codes sent packed a group at a time (PackedUpload), 1 byte a base on
     the card, and its legit-window mask as bits, 1/8 byte a window, sent
-    at its first use."""
+    at its first use (an upload.legit:<name> span)."""
 
-    def __init__(self, genome, k: int, w: int, device, codes: np.ndarray | None = None):
-        super().__init__(_Stream(genome, k, w, codes=codes), device)
+    def __init__(self, genome, k: int, w: int, device, codes: np.ndarray | None = None,
+                 timer: StageTimer | None = None):
+        super().__init__(_Stream(genome, k, w, codes=codes), device, timer=timer)
         self._legit = None
 
     @property
     def legit(self) -> torch.Tensor:
         """uint8 [ceil(n_windows / 8)] legit-window bits on the device."""
         if self._legit is None:
-            self._legit = torch.from_numpy(self.stream.legit_bits()).to(self.device)
+            with self.timer.stage(f"upload.legit:{self.stream.genome.name}"):
+                self._legit = torch.from_numpy(self.stream.legit_bits()).to(self.device)
         return self._legit
 
 
 def sketch_genome(genome, k: int, w: int, common_bf=None, repeat_bf=None, device="cuda",
-                  codes: np.ndarray | None = None, prepared: DeviceStream | None = None
-                  ) -> GenomeSketch:
+                  codes: np.ndarray | None = None, prepared: DeviceStream | None = None,
+                  timer: StageTimer | None = None) -> GenomeSketch:
     """Compute the (k, w) minimizer sketch of a genome.
 
     Args:
@@ -302,9 +319,11 @@ def sketch_genome(genome, k: int, w: int, common_bf=None, repeat_bf=None, device
         a masked copy).
       prepared: optional DeviceStream of this genome already on
         ``device`` (the pipeline's one upload, shared with the BF build).
+      timer: optional utils.StageTimer for the upload's spans when
+        ``prepared`` is not given.
     """
     if prepared is None:
-        prepared = DeviceStream(genome, k, w, resolve_device(device), codes=codes)
+        prepared = DeviceStream(genome, k, w, resolve_device(device), codes=codes, timer=timer)
     sel, selh = sketch_stream(prepared.codes, prepared.legit, k, w, common_bf=common_bf,
                               repeat_bf=repeat_bf)
     return finish_sketch(genome, prepared.stream, sel, selh, k, w, common_bf, repeat_bf, codes)

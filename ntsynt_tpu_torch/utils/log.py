@@ -16,6 +16,10 @@ def set_verbose(value: bool) -> None:
     _VERBOSE = bool(value)
 
 
+def is_verbose() -> bool:
+    return _VERBOSE
+
+
 def log(*args, dev_only: bool = False, file=None) -> None:
     """Print a timestamped progress message (flushy, like the reference)."""
     if dev_only and not _VERBOSE:

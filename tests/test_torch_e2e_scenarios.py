@@ -2,7 +2,7 @@
 remaining tests/test_e2e.py scenarios: translocation, insertion,
 --no-common, dry run and artifacts, and sketch-artifact reuse. Every
 artifact must be byte-identical (the per-stage timings of --benchmark
-excepted, whose stage names must agree)."""
+excepted, whose outer stage names must agree, and the port's spans.tsv)."""
 
 import os
 
@@ -61,7 +61,12 @@ def _blocks(data: bytes):
 
 
 def _stage_names(tsv: bytes):
-    return [line.split("\t")[0] for line in tsv.decode().splitlines()[1:]]
+    """The outer stages of a time.tsv, in order: the stages the JAX
+    package times (the port's time.tsv also has its spans inside them and
+    around them)."""
+    names = [line.split("\t")[0] for line in tsv.decode().splitlines()[1:]]
+    return [n for n in names if n in ("make_common_bf", "make_repeat_bf", "synteny")
+            or n.startswith(("read_fasta:", "sketch:"))]
 
 
 def test_translocation_identical(tmp_path, monkeypatch):
@@ -119,7 +124,7 @@ def test_dry_run_and_artifacts_identical(tmp_path, base_genome, monkeypatch, cap
     assert len(steps) == 2 * 6 and steps[:6] == steps[6:]  # the same plan from both CLIs
     # a real run with --benchmark: every artifact, the timings' stage names
     j, t = _run_both(tmp_path, [fa, fb], monkeypatch, extra=["--benchmark"],
-                     skip=("test.time.tsv",))
+                     skip=("test.time.tsv", "test.spans.tsv"))
     _assert_same(j, t)
     for f in ("x.fa.fai", "y.fa.fai", "x.fa.k24.w100.tsv", "test.common.bf",
               "test.pre-collinear-merge.synteny_blocks.tsv"):
@@ -135,7 +140,7 @@ def test_sketch_artifact_reuse_identical(tmp_path, base_genome, monkeypatch):
     fa = write_fasta(tmp_path / "r1.fa", [("chr1", base_genome)])
     fb = write_fasta(tmp_path / "r2.fa", [("chr1", base_genome)])
     j, t = _run_both(tmp_path, [fa, fb], monkeypatch, extra=["--benchmark"],
-                     skip=("test.time.tsv",), runs=2)
+                     skip=("test.time.tsv", "test.spans.tsv"), runs=2)
     _assert_same(j, t)
     for name in ("jax", "torch"):
         stages = _stage_names((tmp_path / name / "test.time.tsv").read_bytes())
