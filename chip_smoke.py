@@ -1116,7 +1116,7 @@ def phase_card_vs_cpu(torch, tmp: str, info: dict) -> None:
         info[case] = cli_card_vs_cpu(torch, small, case, args + extra)
 
 
-GENOME_FIELDS = ("lengths", "offsets", "codes", "raw", "fai_offsets", "fai_linebases",
+GENOME_FIELDS = ("lengths", "offsets", "codes", "soft", "fai_offsets", "fai_linebases",
                  "fai_linewidth")
 
 
@@ -1883,7 +1883,7 @@ def packed_genome(name: str, codes: np.ndarray, lengths):
     return PackedGenome(path=name, name=name, contig_names=[f"c{i}" for i in range(len(lengths))],
                         lengths=lengths,
                         offsets=np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64),
-                        codes=codes, raw=None, fai_offsets=zeros, fai_linebases=zeros,
+                        codes=codes, soft=None, fai_offsets=zeros, fai_linebases=zeros,
                         fai_linewidth=zeros)
 
 

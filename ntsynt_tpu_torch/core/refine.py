@@ -182,7 +182,7 @@ def condensed_genome(genome, mask_by_ctg, w: int, k: int):
         lengths=lengths,
         offsets=offsets,
         codes=np.concatenate(seg_codes),
-        raw=None,
+        soft=None,
         fai_offsets=np.zeros(len(names), np.int64),
         fai_linebases=lengths.copy(),
         fai_linewidth=lengths + 1,

@@ -1,7 +1,9 @@
 // Native FASTA reader/packer for ntsynt_tpu_torch: the JAX package's
 // csrc/fastaio.cpp, built for the host it runs on
-// (ops/_kernels.build_host: g++, no -march). Its parse is unchanged; its
-// two upload helpers are fused into one (fastaio_pack_stream, below).
+// (ops/_kernels.build_host: g++, no -march). Its parse is split in two
+// calls so that it writes into the arrays the caller keeps, and it keeps
+// each base's case as one bit instead of the raw byte; its two upload
+// helpers are fused into one (fastaio_pack_stream, below).
 //
 // Role: the host-side data loader feeding the sketching kernels —
 // the analog of the reference's threaded btllib SeqReader layer
@@ -9,12 +11,16 @@
 // is the kind of host bottleneck that starves the device, so this does
 // an mmap'd two-pass parse with OpenMP:
 //
-//   pass 1 (serial, memchr): locate headers and line structure,
-//   pass 2 (parallel over contigs): strip newlines, copy raw bytes and
-//     write 2-bit-ish base codes (A=0 C=1 G=2 T=3 other=4) via a LUT.
+//   fastaio_scan (serial, memchr): map the file, locate headers and line
+//     structure: the contig table, its .fai fields and `total` bases;
+//   fastaio_fill (parallel over contigs): strip newlines and write the
+//     base codes (A=0 C=1 G=2 T=3 other=4, via a LUT) and the soft-mask
+//     bits (bit i of soft[i / 8], at i % 8: base i is one of a c g t)
+//     into the caller's buffers.
 //
 // Exposed as a tiny C ABI consumed through ctypes (no pybind11 in the
-// image). All buffers are allocated here and freed by fastaio_free.
+// image). The handle owns the mapping and the contig table until
+// fastaio_free; the base arrays are the caller's.
 
 #include <cstdint>
 #include <cstdio>
@@ -50,6 +56,7 @@ struct Parsed {
   char* map = nullptr;
   size_t map_len = 0;
   int fd = -1;
+  std::vector<Contig> contigs;
   // outputs
   std::vector<int64_t> lengths;
   std::vector<int64_t> offsets;
@@ -57,47 +64,61 @@ struct Parsed {
   std::vector<int64_t> fai_linebases;
   std::vector<int64_t> fai_linewidth;
   std::string names;           // '\0'-separated contig names
-  uint8_t* codes = nullptr;    // [total]
-  uint8_t* raw = nullptr;      // [total]
   size_t total = 0;
 };
 
+// A soft-mask byte that a contig covers only in part: another contig
+// (another thread) may hold its other bits.
+struct EdgeByte {
+  int64_t index = -1;
+  uint8_t bits = 0;
+};
+
 uint8_t g_lut[256];
+uint8_t g_soft[256];  // 1 for a c g t
 
 void init_lut() {
   static bool done = false;
   if (done) return;
   memset(g_lut, 4, sizeof(g_lut));
-  g_lut[(unsigned char)'A'] = 0; g_lut[(unsigned char)'a'] = 0;
-  g_lut[(unsigned char)'C'] = 1; g_lut[(unsigned char)'c'] = 1;
-  g_lut[(unsigned char)'G'] = 2; g_lut[(unsigned char)'g'] = 2;
-  g_lut[(unsigned char)'T'] = 3; g_lut[(unsigned char)'t'] = 3;
+  memset(g_soft, 0, sizeof(g_soft));
+  const char* upper = "ACGT";
+  const char* lower = "acgt";
+  for (int i = 0; i < 4; ++i) {
+    g_lut[(unsigned char)upper[i]] = (uint8_t)i;
+    g_lut[(unsigned char)lower[i]] = (uint8_t)i;
+    g_soft[(unsigned char)lower[i]] = 1;
+  }
   done = true;
+}
+
+void close_parsed(Parsed* p) {
+  if (p->map && p->map != MAP_FAILED) munmap(p->map, p->map_len);
+  if (p->fd >= 0) close(p->fd);
+  delete p;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Parse a plain (non-gzip) FASTA file. Returns an opaque handle or
-// nullptr on failure.
-void* fastaio_parse(const char* path, int threads) {
+// Map a plain (non-gzip) FASTA file and read its line structure.
+// Returns an opaque handle or nullptr on failure (unreadable or empty).
+void* fastaio_scan(const char* path) {
   init_lut();
   auto* p = new Parsed();
   p->fd = open(path, O_RDONLY);
   if (p->fd < 0) { delete p; return nullptr; }
   struct stat st;
-  if (fstat(p->fd, &st) != 0 || st.st_size == 0) { close(p->fd); delete p; return nullptr; }
+  if (fstat(p->fd, &st) != 0 || st.st_size == 0) { close_parsed(p); return nullptr; }
   p->map_len = (size_t)st.st_size;
   p->map = (char*)mmap(nullptr, p->map_len, PROT_READ, MAP_PRIVATE, p->fd, 0);
-  if (p->map == MAP_FAILED) { close(p->fd); delete p; return nullptr; }
+  if (p->map == MAP_FAILED) { close_parsed(p); return nullptr; }
   madvise(p->map, p->map_len, MADV_SEQUENTIAL);
 
   const char* data = p->map;
   const size_t n = p->map_len;
-
-  // pass 1: line structure
-  std::vector<Contig> contigs;
+  std::vector<Contig>& contigs = p->contigs;
   size_t pos = 0;
   while (pos < n) {
     const char* nl = (const char*)memchr(data + pos, '\n', n - pos);
@@ -136,17 +157,10 @@ void* fastaio_parse(const char* path, int threads) {
     pos = next;
   }
 
-  // allocate outputs
   size_t total = 0;
-  for (auto& c : contigs) { c.out_offset = total; total += c.length; }
-  p->total = total;
-  p->codes = (uint8_t*)malloc(total ? total : 1);
-  p->raw = (uint8_t*)malloc(total ? total : 1);
-  if (!p->codes || !p->raw) {
-    free(p->codes); free(p->raw);
-    munmap(p->map, p->map_len); close(p->fd); delete p; return nullptr;
-  }
   for (auto& c : contigs) {
+    c.out_offset = total;
+    total += c.length;
     p->lengths.push_back((int64_t)c.length);
     p->offsets.push_back((int64_t)c.out_offset);
     p->fai_offsets.push_back((int64_t)c.seq_begin);
@@ -155,33 +169,72 @@ void* fastaio_parse(const char* path, int threads) {
     p->names.append(c.header, c.header_len);
     p->names.push_back('\0');
   }
+  p->total = total;
+  return p;
+}
 
+// Write the scanned file's bases into codes (uint8 [total]) and, unless
+// soft is null, their soft-mask bits into soft (uint8 [ceil(total / 8)];
+// the padding bits of its last byte are 0).
+void fastaio_fill(void* h, uint8_t* codes, uint8_t* soft, int threads) {
+  const Parsed* p = (const Parsed*)h;
+  const char* data = p->map;
+  const std::vector<Contig>& contigs = p->contigs;
+  const int64_t n_contigs = (int64_t)contigs.size();
+  // each contig's first and last soft byte when it covers them in part;
+  // every other soft byte of a contig is its thread's alone
+  std::vector<EdgeByte> edges(soft ? 2 * (size_t)n_contigs : 0);
 #if defined(_OPENMP)
   if (threads > 0) omp_set_num_threads(threads);
 #endif
-  // pass 2: strip newlines + code in parallel over contigs
-  const int64_t n_contigs = (int64_t)contigs.size();
 #pragma omp parallel for schedule(dynamic)
   for (int64_t i = 0; i < n_contigs; ++i) {
     const Contig& c = contigs[(size_t)i];
-    uint8_t* out_raw = p->raw + c.out_offset;
-    uint8_t* out_code = p->codes + c.out_offset;
+    uint8_t* out_code = codes + c.out_offset;
     size_t written = 0;
+    size_t g = c.out_offset;  // stream position of the next base
+    uint8_t acc = 0;          // soft bits of byte g / 8 so far
     size_t sp = c.seq_begin;
     while (sp < c.seq_end && written < c.length) {
       const char* nl = (const char*)memchr(data + sp, '\n', c.seq_end - sp);
       size_t le = nl ? (size_t)(nl - data) : c.seq_end;
       size_t re = le;
       if (re > sp && data[re - 1] == '\r') re--;
-      size_t bases = re - sp;
-      memcpy(out_raw + written, data + sp, bases);
-      for (size_t b = 0; b < bases; ++b)
-        out_code[written + b] = g_lut[(unsigned char)data[sp + b]];
+      const size_t bases = re - sp;
+      const unsigned char* src = (const unsigned char*)data + sp;
+      for (size_t b = 0; b < bases; ++b) out_code[written + b] = g_lut[src[b]];
+      if (soft) {
+        size_t b = 0;
+        for (; b < bases && (g & 7); ++b) {  // up to the next whole byte
+          acc |= (uint8_t)(g_soft[src[b]] << (g & 7));
+          if ((++g & 7) == 0) {
+            if (g - 8 >= c.out_offset) {
+              soft[(g >> 3) - 1] = acc;
+            } else {  // the contig starts inside this byte
+              edges[2 * (size_t)i] = EdgeByte{(int64_t)(g >> 3) - 1, acc};
+            }
+            acc = 0;
+          }
+        }
+        for (; b + 8 <= bases; b += 8, g += 8) {  // whole bytes, the contig's alone
+          uint8_t v = 0;
+          for (int j = 0; j < 8; ++j) v |= (uint8_t)(g_soft[src[b + j]] << j);
+          soft[g >> 3] = v;
+        }
+        for (; b < bases; ++b, ++g)  // the line ends inside this byte
+          acc |= (uint8_t)(g_soft[src[b]] << (g & 7));
+      }
       written += bases;
       sp = nl ? le + 1 : c.seq_end;
     }
+    if (soft && c.length > 0 && (g & 7) != 0)  // the contig ends inside this byte
+      edges[2 * (size_t)i + 1] = EdgeByte{(int64_t)(g >> 3), acc};
   }
-  return p;
+  // the shared bytes, once each, on one thread
+  for (const EdgeByte& e : edges)
+    if (e.index >= 0) soft[e.index] = 0;
+  for (const EdgeByte& e : edges)
+    if (e.index >= 0) soft[e.index] |= e.bits;
 }
 
 int64_t fastaio_n_contigs(void* h) { return (int64_t)((Parsed*)h)->lengths.size(); }
@@ -193,17 +246,9 @@ const int64_t* fastaio_fai_linebases(void* h) { return ((Parsed*)h)->fai_linebas
 const int64_t* fastaio_fai_linewidth(void* h) { return ((Parsed*)h)->fai_linewidth.data(); }
 const char* fastaio_names(void* h) { return ((Parsed*)h)->names.c_str(); }
 int64_t fastaio_names_len(void* h) { return (int64_t)((Parsed*)h)->names.size(); }
-const uint8_t* fastaio_codes(void* h) { return ((Parsed*)h)->codes; }
-const uint8_t* fastaio_raw(void* h) { return ((Parsed*)h)->raw; }
 
 void fastaio_free(void* h) {
-  auto* p = (Parsed*)h;
-  if (!p) return;
-  free(p->codes);
-  free(p->raw);
-  if (p->map && p->map != MAP_FAILED) munmap(p->map, p->map_len);
-  if (p->fd >= 0) close(p->fd);
-  delete p;
+  if (h) close_parsed((Parsed*)h);
 }
 
 }  // extern "C"

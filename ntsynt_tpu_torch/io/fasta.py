@@ -6,15 +6,18 @@ one parse produces
 
   * ``codes``: uint8 per base, A=0 C=1 G=2 T=3, anything else=4
     (case-insensitive, so soft-masked genomes hash like indexlr's), and
-  * ``raw``: the original sequence bytes (needed to emit the ``seq``
-    column of sketch TSVs byte-identically), and
+  * ``soft``: one bit a base, set where the base is one of ``acgt``
+    (with the codes it gives back the ``seq`` column of sketch TSVs
+    byte-identically: every byte of a valid k-mer is one of ``ACGTacgt``),
+    and
   * a contig table equivalent to a `samtools faidx` .fai (name, length,
     byte offset, linebases, linewidth) so we can write a matching .fai
     without shelling out (rule faidx, bin/ntsynt_run_pipeline.smk:48-53).
 
 Plain files are parsed by the host library's OpenMP packer
-(``csrc/host/fastaio.cpp``, built by ops/_kernels.build_host); gzip
-files, and any file under ``native=False``, by NumPy.
+(``csrc/host/fastaio.cpp``, built by ops/_kernels.build_host), which
+writes the bases straight into the arrays the genome keeps; gzip files,
+and any file under ``native=False``, by NumPy.
 """
 
 import contextlib
@@ -29,7 +32,10 @@ for _i, _c in enumerate(b"ACGT"):
     CODE_LUT[_c] = _i
     CODE_LUT[_c + 32] = _i  # lowercase
 
-_DECODE = np.frombuffer(b"ACGTN", dtype=np.uint8)
+# byte code | soft-mask bit << 3 -> the base's letter
+_DECODE = bytes.maketrans(bytes([*range(5), *range(8, 13)]), b"ACGTNacgtn")
+SOFT_LUT = np.zeros(256, dtype=bool)
+SOFT_LUT[list(b"acgt")] = True
 
 
 @dataclass
@@ -42,7 +48,9 @@ class PackedGenome:
     lengths: np.ndarray  # int64 [n_contigs]
     offsets: np.ndarray  # int64 [n_contigs] start of each contig in `codes`
     codes: np.ndarray  # uint8 [total_bases]
-    raw: np.ndarray | None  # uint8 [total_bases] original bytes (or None)
+    # uint8 [ceil(total_bases / 8)]: bit i % 8 of byte i // 8 is set where
+    # base i is one of acgt (or None)
+    soft: np.ndarray | None
     fai_offsets: np.ndarray  # int64 byte offset of first base in file
     fai_linebases: np.ndarray  # int64 bases per line
     fai_linewidth: np.ndarray  # int64 bytes per line (incl newline)
@@ -56,20 +64,33 @@ class PackedGenome:
         return int(self.lengths.sum())
 
     def kmer_strings(self, contig_idx: int, positions, k: int) -> list:
-        """Batch k-mer decode: one gather + bytes view instead of a
-        per-minimizer Python loop (the sketch-TSV writer decodes ~2L/w
-        k-mers per genome; the loop's GIL time contended with the
-        synteny stage when the writer runs on a background thread)."""
+        """The file's bytes of the k-mers at ``positions`` of a contig, for
+        k-mers of ``ACGTacgt`` alone (every minimizer's): the codes
+        decoded, lowercase where the soft-mask bit is set (uppercase
+        without ``soft``). Batch decode: row gathers of windows and one
+        translate instead of a per-minimizer Python loop (the sketch-TSV
+        writer decodes ~2L/w k-mers per genome; the loop's GIL time
+        contended with the synteny stage when the writer runs on a
+        background thread)."""
         pos = np.asarray(positions, dtype=np.int64)
         if len(pos) == 0:
             return []
-        o = int(self.offsets[contig_idx])
-        gather = (o + pos)[:, None] + np.arange(k, dtype=np.int64)[None, :]
-        if self.raw is not None:
-            mat = self.raw[gather]
-        else:
-            mat = _DECODE[np.minimum(self.codes[gather], 4)]
-        return [s.decode() for s in mat.reshape(-1).view(f"S{k}")]
+        q = int(self.offsets[contig_idx]) + pos
+        mat = np.lib.stride_tricks.sliding_window_view(self.codes, k)[q]
+        if self.soft is not None:
+            mat |= self._soft_bits(q, k) << 3
+        letters = np.frombuffer(mat.tobytes().translate(_DECODE), dtype=np.uint8)
+        return [s.decode() for s in letters.view(f"S{k}")]
+
+    def _soft_bits(self, q, k: int) -> np.ndarray:
+        """uint8 [len(q), k]: the soft-mask bits of bases q .. q + k - 1.
+        Each row unpacks the nb bytes from q's byte on (from the last nb
+        bytes near the end), which hold its k bits at q - 8 * start."""
+        windows = np.lib.stride_tricks.sliding_window_view
+        nb = min((k + 14) // 8, len(self.soft))
+        start = np.minimum(q >> 3, len(self.soft) - nb)
+        bits = np.unpackbits(windows(self.soft, nb)[start], axis=1, bitorder="little")
+        return windows(bits, k, axis=1)[np.arange(len(q)), q - 8 * start]
 
 
 def _native_lib():
@@ -139,10 +160,12 @@ def pack_stream(codes, offsets, lengths, starts, out_len: int, threads: int = 0,
 
 
 def _read_fasta_native(path: str, keep_raw: bool, lib, threads: int = 0) -> PackedGenome | None:
+    """The host library's two passes: the scan's contig table, then the
+    fill, which writes the codes and soft-mask bits into the arrays the
+    genome keeps. None when the file cannot be mapped."""
     import ctypes
 
-    with _omp_threads(lib, threads):
-        h = lib.fastaio_parse(path.encode(), threads)
+    h = lib.fastaio_scan(path.encode())
     if not h:
         return None
     try:
@@ -160,29 +183,24 @@ def _read_fasta_native(path: str, keep_raw: bool, lib, threads: int = 0) -> Pack
         fai_lw = arr64(lib.fastaio_fai_linewidth)
         names_blob = ctypes.string_at(lib.fastaio_names(h), int(lib.fastaio_names_len(h)))
         names = names_blob.decode().split("\x00")[:-1]
-        codes = (
-            np.ctypeslib.as_array(lib.fastaio_codes(h), shape=(total,)).copy()
-            if total
-            else np.zeros(0, np.uint8)
-        )
-        raw = (
-            np.ctypeslib.as_array(lib.fastaio_raw(h), shape=(total,)).copy()
-            if (keep_raw and total)
-            else (np.zeros(0, np.uint8) if keep_raw else None)
-        )
+        codes = np.empty(total, np.uint8)
+        soft = np.empty(-(-total // 8), np.uint8) if keep_raw else None
+        with _omp_threads(lib, threads):
+            lib.fastaio_fill(h, codes.ctypes.data, None if soft is None else soft.ctypes.data,
+                             threads)
     finally:
         lib.fastaio_free(h)
     return PackedGenome(
         path=path,
         name=os.path.basename(path),
         contig_names=names,
-        lengths=lengths.astype(np.int64),
-        offsets=offsets.astype(np.int64),
+        lengths=lengths,
+        offsets=offsets,
         codes=codes,
-        raw=raw,
-        fai_offsets=fai_off.astype(np.int64),
-        fai_linebases=fai_lb.astype(np.int64),
-        fai_linewidth=fai_lw.astype(np.int64),
+        soft=soft,
+        fai_offsets=fai_off,
+        fai_linebases=fai_lb,
+        fai_linewidth=fai_lw,
     )
 
 
@@ -190,6 +208,8 @@ def read_fasta(path: str, keep_raw: bool = True, native: bool | None = None,
                threads: int = 0) -> PackedGenome:
     """Parse a FASTA(.gz) file into a PackedGenome.
 
+    keep_raw: keep what the sketch TSV's ``seq`` column needs of the raw
+    bytes, their case, as the soft-mask bits ``soft`` (else None).
     Plain (non-gzip) files go through the host library's OpenMP packer
     (``threads`` > 0 sets its thread count; 0 leaves OpenMP's). A .gz
     file, or native=False, takes the NumPy path; so does a file the
@@ -250,8 +270,11 @@ def read_fasta(path: str, keep_raw: bool = True, native: bool | None = None,
             byte_pos += len(line)
     _finish()
 
-    raw = np.frombuffer(b"".join(b"".join(p) for p in seq_parts), dtype=np.uint8).copy()
+    raw = np.frombuffer(b"".join(b"".join(p) for p in seq_parts), dtype=np.uint8)
+    del seq_parts, data
     codes = CODE_LUT[raw]
+    soft = np.packbits(SOFT_LUT[raw], bitorder="little") if keep_raw else None
+    del raw
     return PackedGenome(
         path=path,
         name=os.path.basename(path),
@@ -259,7 +282,7 @@ def read_fasta(path: str, keep_raw: bool = True, native: bool | None = None,
         lengths=np.asarray(lengths, dtype=np.int64),
         offsets=np.asarray(base_offsets, dtype=np.int64),
         codes=codes,
-        raw=raw if keep_raw else None,
+        soft=soft,
         fai_offsets=np.asarray(fai_off, dtype=np.int64),
         fai_linebases=np.asarray(fai_lb, dtype=np.int64),
         fai_linewidth=np.asarray(fai_lw, dtype=np.int64),

@@ -98,11 +98,12 @@ _SIGNATURES = {
 }
 
 
-_U8P = ctypes.POINTER(ctypes.c_uint8)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 # host library: name -> (restype, argtypes)
 _HOST_SIGNATURES = {
-    "fastaio_parse": (_P, [ctypes.c_char_p, ctypes.c_int]),
+    "fastaio_scan": (_P, [ctypes.c_char_p]),
+    # handle, codes, soft (NULL: none), threads
+    "fastaio_fill": (None, [_P, _P, _P, ctypes.c_int]),
     "fastaio_n_contigs": (_I64, [_P]),
     "fastaio_total": (_I64, [_P]),
     "fastaio_names_len": (_I64, [_P]),
@@ -111,8 +112,6 @@ _HOST_SIGNATURES = {
     "fastaio_fai_offsets": (_I64P, [_P]),
     "fastaio_fai_linebases": (_I64P, [_P]),
     "fastaio_fai_linewidth": (_I64P, [_P]),
-    "fastaio_codes": (_U8P, [_P]),
-    "fastaio_raw": (_U8P, [_P]),
     "fastaio_names": (ctypes.POINTER(ctypes.c_char), [_P]),
     "fastaio_free": (None, [_P]),
     # codes, offsets, lengths, starts, n_contigs, out_len, packed2, nbits, threads

@@ -96,7 +96,7 @@ def main(argv=None):
         fa_name = m.group(1)
         genome = None
         if fa_name in fasta_by_base:
-            genome = read_fasta(fasta_by_base[fa_name], threads=args.btllib_t)
+            genome = read_fasta(fasta_by_base[fa_name], keep_raw=False, threads=args.btllib_t)
         records = read_sketch_tsv(tsv)
         assemblies[fa_name] = AssemblyMinimizers.from_tsv_records(
             fa_name, records, genome=genome, repeat_out_filter=rep_filter

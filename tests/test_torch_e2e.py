@@ -2,7 +2,8 @@
 tests/test_e2e.py scenarios: every artifact (blocks TSVs, sketch TSVs,
 .fai, graph, BF stubs) must be byte-identical, with and without the
 repeat filter (--filter Indexlr|Filter); byte-complete .bf files from
-the pipeline and the synteny-only entry point (run_core) likewise. Also:
+the pipeline and the synteny-only entry point (run_core) likewise, and
+on soft-masked genomes. Also:
 the port runs with neither jax nor the JAX package loaded."""
 
 import os
@@ -103,6 +104,35 @@ def test_three_genomes_identical(tmp_path, base_genome, monkeypatch):
     assert (tmp_path / "torch" / "test.synteny_blocks.tsv").read_bytes() == t[
         "test.synteny_blocks.tsv"
     ]
+
+
+def test_soft_masked_scenario_identical(tmp_path, base_genome, monkeypatch):
+    """Soft-masked genomes, lowercase runs over about a third of each:
+    every artifact byte-identical to the JAX package's, the sketch TSVs'
+    k-mers keeping their case (some lowercase, some mixed)."""
+    rng = np.random.default_rng(21)
+    other = base_genome.copy()
+    snp = rng.random(len(other)) < 0.002
+    other[snp] = (other[snp] + rng.integers(1, 4, snp.sum())) % 4
+    other[60_000:110_000] = other[60_000:110_000][::-1] ^ 3
+    fastas = []
+    for name, g in (("sa.fa", base_genome), ("sb.fa", other)):
+        raw = np.frombuffer(b"ACGT", np.uint8)[g]
+        lower = np.zeros(len(raw), bool)
+        for start in rng.integers(0, len(raw), 150):
+            lower[start : start + int(rng.integers(20, 900))] = True
+        assert 0.25 < lower.mean() < 0.45
+        raw = np.where(lower, raw + 32, raw).astype(np.uint8)
+        body = b"\n".join(raw[i : i + 70].tobytes() for i in range(0, len(raw), 70))
+        (tmp_path / name).write_bytes(b">chr1\n" + body + b"\n")
+        fastas.append(str(tmp_path / name))
+    j, t = _run_both(tmp_path, fastas, monkeypatch)
+    _assert_same(j, t)
+    assert len(_blocks(t["test.synteny_blocks.tsv"])) >= 3
+    seqs = [rec.split(":")[2] for f in ("sa.fa.k24.w100.tsv", "sb.fa.k24.w100.tsv")
+            for line in t[f].decode().splitlines() for rec in line.split("\t")[1].split()]
+    assert any(s.islower() for s in seqs) and any(s.isupper() for s in seqs)
+    assert any(not s.islower() and not s.isupper() for s in seqs)
 
 
 def test_cli_rejects_unported_flags_and_missing_cuda(tmp_path, base_genome, monkeypatch, capsys):

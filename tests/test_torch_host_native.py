@@ -1,14 +1,16 @@
 """The port's host library (csrc/host/*.cpp, built by
 ops/_kernels.build_host with g++) against the NumPy paths and the JAX
 package: the FASTA packer against the port's NumPy reader and both of
-the JAX package's readers, the packed stream layout against its NumPy
-form,
+the JAX package's readers (the port keeps each base's case as a
+soft-mask bit where the JAX package keeps the raw byte), the read's
+host memory, the packed stream layout against its NumPy form,
 and the chain walker, native and with NTSYNT_NO_NATIVE_WALK, against
 the JAX package's linear_paths. Also the build itself: two processes
 building into one fresh directory, and a failing compiler."""
 
 import ctypes
 import gzip
+import json
 import os
 import subprocess
 import sys
@@ -29,9 +31,10 @@ from ntsynt_tpu_torch.ops import sketch as torch_sketch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the eight edge cases of the two readers; the '>'-only header is the
-# one where the JAX package's paths differ (the NumPy path raises
-# IndexError, the native one names the contig '')
+# the edge cases of the readers; the '>'-only header is the one where
+# the JAX package's paths differ (the NumPy path raises IndexError, the
+# native one names the contig ''). The soft_* cases are soft-masked:
+# their contigs start and end inside the soft mask's bytes.
 EDGE_CASES = {
     "text_before_header": b"stray text\nACGT\n>c1 x\nACGTN\nac\n>c2\nGG\n",
     "empty_contig": b">e1\n>c1\nACGTACGT\nAC\n>e2\n>c2\nTTTT\n>e3\n",
@@ -41,8 +44,16 @@ EDGE_CASES = {
     "blank_line_in_contig": b">c1\nACGTAC\n\nACGTAC\nAC\n\n>c2\n\nGGCC\n",
     "header_only_gt": b">\nACGTACGT\nAC\n>c2\nTTTT\n",
     "space_in_sequence": b">c1\nACGT ACGT\nAC GT\n>c2\nT T\n",
+    "soft_mixed_case_runs": b">c1\nACGTacgtaCGTAcgtt\ntacGTNNnnacgTaaaa\n>c2\naaaaaaaaaaaaaaaaaaaCCCC\n"
+                            b">c3\nttttttttGGGGGGGGcccccccc\n",
+    "soft_iupac": b">c1\nACGTRYKMSWBDHVNacgtrykmswbdhvnuU\nAcGt\n>c2\nnNacgtNn\n",
+    "soft_crlf": b">c1 x\r\nacgTA\r\nCGtac\r\n>c2\r\nggggCC\r\n>c3\r\ntTtT\r\n",
+    "soft_unaligned_contigs": b"".join(
+        b">s%d\n" % i + (b"acgTAcgTagCTacgtaGGtc"[: n]) + b"\n"
+        for i, n in enumerate((1, 3, 5, 7, 9, 13, 17, 2, 8, 16, 0, 11))),
 }
-FIELDS = ("lengths", "offsets", "codes", "raw", "fai_offsets", "fai_linebases", "fai_linewidth")
+GENOME_FIELDS = ("lengths", "offsets", "codes", "fai_offsets", "fai_linebases", "fai_linewidth")
+VALID = np.frombuffer(b"ACGTacgt", dtype=np.uint8)
 
 
 def _jax_native_lib():
@@ -58,24 +69,74 @@ def _fai(g, path) -> bytes:
     return open(fio.write_fai(g, str(path)), "rb").read()
 
 
+def soft_of_raw(raw):
+    """The soft-mask bits of raw bytes: bit i % 8 of byte i // 8 set where
+    byte i is one of acgt."""
+    return np.packbits(np.isin(raw, VALID[4:]), bitorder="little")
+
+
+def assert_kmers_match_raw(g, raw, ks=(3, 9)):
+    """The port genome's kmer_strings at every valid k-mer (all bytes
+    ACGTacgt) of every contig equal the raw bytes there."""
+    valid = np.isin(raw, VALID)
+    for k in ks:
+        for ci in range(g.n_contigs):
+            o, ln = int(g.offsets[ci]), int(g.lengths[ci])
+            if ln < k:
+                continue
+            pos = np.flatnonzero(np.lib.stride_tricks.sliding_window_view(
+                valid[o : o + ln], k).all(axis=1))
+            got = "".join(g.kmer_strings(ci, pos, k)).encode()
+            want = raw[o + pos[:, None] + np.arange(k)].tobytes()
+            assert got == want, (k, ci)
+
+
 def _assert_same_genome(a, b, tmp_path):
+    """a is the port's genome; b the port's (every field equal) or the JAX
+    package's (its raw bytes give a's soft mask and k-mer strings)."""
     assert a.contig_names == b.contig_names
-    for f in FIELDS:
+    for f in GENOME_FIELDS:
         x, y = getattr(a, f), getattr(b, f)
         assert x.dtype == y.dtype and x.shape == y.shape and (x == y).all(), f
+    assert a.soft.dtype == np.uint8 and a.soft.shape == (-(-a.total_bases // 8),)
+    if isinstance(b, fio.PackedGenome):
+        assert (a.soft == b.soft).all()
+    else:
+        assert (a.soft == soft_of_raw(b.raw)).all()
+        assert_kmers_match_raw(a, b.raw)
     assert _fai(a, tmp_path / "a.fai") == _fai(b, tmp_path / "b.fai")
 
 
-def _readers():
-    """name -> reader(path, threads) for the port's two paths and the
-    JAX package's two (its native one when its library loads)."""
-    readers = {
+def _port_readers():
+    """name -> reader(path, threads) for the port's two paths."""
+    return {
+        "torch_native": lambda p, t: fio.read_fasta(p, native=True, threads=t),
         "torch_numpy": lambda p, t: fio.read_fasta(p, native=False),
-        "jax_numpy": lambda p, t: jax_fio.read_fasta(p, native=False),
     }
+
+
+def _readers():
+    """name -> reader(path, threads) for the JAX package's two paths (its
+    native one when its library loads)."""
+    readers = {"jax_numpy": lambda p, t: jax_fio.read_fasta(p, native=False)}
     if _jax_native_lib() is not None:
         readers["jax_native"] = lambda p, t: jax_fio.read_fasta(p, native=True, threads=t)
     return readers
+
+
+def _assert_every_reader(path, tmp_path, threads, port=None, jax=None):
+    """Both port readers against each other and against every JAX reader."""
+    port = port if port is not None else _port_readers()
+    jax = jax if jax is not None else _readers()
+    got = {name: read(path, threads) for name, read in port.items()}
+    first = next(iter(got.values()))
+    for g in got.values():
+        _assert_same_genome(g, first, tmp_path)
+    for read in jax.values():
+        ref = read(path, threads)
+        for g in got.values():
+            _assert_same_genome(g, ref, tmp_path)
+    return first
 
 
 @pytest.mark.parametrize("case", sorted(EDGE_CASES))
@@ -84,15 +145,17 @@ def test_edge_cases_match_every_reader(tmp_path, case):
     path.write_bytes(EDGE_CASES[case])
     g = fio.read_fasta(str(path), native=True)
     assert fio.read_fasta(str(path)).contig_names == g.contig_names  # native=None: native
-    readers = _readers()
+    port, readers = _port_readers(), _readers()
     if case == "header_only_gt":
         # per path, as the JAX package does it
         assert g.contig_names == ["", "c2"]
-        for name in ("torch_numpy", "jax_numpy"):
-            with pytest.raises(IndexError):
-                readers.pop(name)(str(path), 0)
-    for name, read in readers.items():
-        _assert_same_genome(g, read(str(path), 0), tmp_path)
+        with pytest.raises(IndexError):
+            port.pop("torch_numpy")(str(path), 0)
+        with pytest.raises(IndexError):
+            readers.pop("jax_numpy")(str(path), 0)
+    if case.startswith("soft_"):
+        assert g.soft.any()
+    _assert_every_reader(str(path), tmp_path, 0, port, readers)
 
 
 def _random_fasta(path, rng, contigs, width):
@@ -105,28 +168,65 @@ def _random_fasta(path, rng, contigs, width):
     return str(path)
 
 
-@pytest.mark.parametrize("shape", ["multi_contig", "2^22_bases"])
+def soft_masked_fasta(path, rng, contigs, width, crlf=False):
+    """Contigs of ACGT with lowercase runs over about a third of each
+    (run lengths 1 to 400), a few N and IUPAC letters; lines of width."""
+    dec = np.frombuffer(b"ACGT", dtype=np.uint8)
+    eol = b"\r\n" if crlf else b"\n"
+    with open(path, "wb") as fout:
+        for i, n in enumerate(contigs):
+            raw = dec[rng.integers(0, 4, n)]
+            lower = np.zeros(n + 1, np.int64)
+            starts = rng.integers(0, max(n, 1), max(1, n // 600))
+            ends = np.minimum(starts + rng.integers(1, 401, len(starts)), n)
+            np.add.at(lower, starts, 1)
+            np.add.at(lower, ends, -1)
+            raw[np.cumsum(lower)[:n] > 0] += 32
+            odd = rng.random(n) < 0.002
+            raw[odd] = np.frombuffer(b"NnRYkmSW", np.uint8)[rng.integers(0, 8, odd.sum())]
+            lines = [raw[j : j + width].tobytes() for j in range(0, n, width)]
+            fout.write(f">ctg{i}".encode() + eol + eol.join(lines) + eol)
+    return str(path)
+
+
+@pytest.mark.parametrize("shape", ["multi_contig", "2^22_bases", "soft_one_contig_a_thread",
+                                   "soft_more_contigs_than_threads"])
 def test_random_files_match_every_reader(tmp_path, shape):
+    """The native reader at one thread and at four against the port's
+    NumPy reader and the JAX package's readers. The soft-masked shapes
+    give four threads one contig each, then 300 contigs of lengths that
+    are not multiples of 8 (CRLF lines)."""
     rng = np.random.default_rng(7)
-    contigs = [int(x) for x in rng.integers(1, 50_000, 12)] if shape == "multi_contig" \
-        else [1 << 22]
-    path = _random_fasta(tmp_path / "r.fa", rng, contigs, 61)
+    if shape == "soft_one_contig_a_thread":
+        contigs = [int(x) * 8 + 3 for x in rng.integers(1000, 5000, 4)]
+        path = soft_masked_fasta(tmp_path / "r.fa", rng, contigs, 61)
+    elif shape == "soft_more_contigs_than_threads":
+        contigs = [int(x) * 8 + int(r) for x, r in zip(rng.integers(0, 120, 300),
+                                                      rng.integers(1, 8, 300))]
+        path = soft_masked_fasta(tmp_path / "r.fa", rng, contigs, 50, crlf=True)
+    else:
+        contigs = [int(x) for x in rng.integers(1, 50_000, 12)] if shape == "multi_contig" \
+            else [1 << 22]
+        path = _random_fasta(tmp_path / "r.fa", rng, contigs, 61)
     g1 = fio.read_fasta(path, native=True, threads=1)
     g4 = fio.read_fasta(path, native=True, threads=4)
     _assert_same_genome(g1, g4, tmp_path)
     assert g1.total_bases == sum(contigs)
-    for name, read in _readers().items():
-        _assert_same_genome(g1, read(path, 4), tmp_path)
+    _assert_every_reader(path, tmp_path, 4)
 
 
 def test_keep_raw_false_and_fallbacks(tmp_path):
-    """keep_raw=False drops raw on both paths; an empty file falls back to
-    NumPy under native=None and raises under native=True; gzip takes the
-    NumPy path."""
-    path = _random_fasta(tmp_path / "r.fa", np.random.default_rng(1), [3000, 10], 70)
+    """keep_raw=False drops the soft mask on both paths; an empty file
+    falls back to NumPy under native=None and raises under native=True;
+    gzip takes the NumPy path. Without the mask, k-mers decode
+    uppercase."""
+    path = soft_masked_fasta(tmp_path / "r.fa", np.random.default_rng(1), [3000, 10], 70)
     g = fio.read_fasta(path, keep_raw=False)
-    assert g.raw is None and fio.read_fasta(path, keep_raw=False, native=False).raw is None
-    assert (g.codes == fio.read_fasta(path, native=False).codes).all()
+    assert g.soft is None and fio.read_fasta(path, keep_raw=False, native=False).soft is None
+    full = fio.read_fasta(path, native=False)
+    assert (g.codes == full.codes).all() and full.soft.any()
+    pos = np.arange(0, 2000, 7)
+    assert g.kmer_strings(0, pos, 9) == [s.upper() for s in full.kmer_strings(0, pos, 9)]
     empty = tmp_path / "empty.fa"
     empty.write_bytes(b"")
     assert fio.read_fasta(str(empty)).n_contigs == 0
@@ -138,6 +238,52 @@ def test_keep_raw_false_and_fallbacks(tmp_path):
         fout.write(open(path, "rb").read())
     _assert_same_genome(fio.read_fasta(str(gz), native=True),
                         fio.read_fasta(path, native=True), tmp_path)
+
+
+_RSS_READ = """
+import json, sys
+from synbench.job import RssSampler, rss_bytes
+from ntsynt_tpu_torch.io import fasta as fio
+from ntsynt_tpu_torch.ops import _kernels
+
+def hwm():
+    with open("/proc/self/status") as fin:
+        return next(int(l.split()[1]) * 1024 for l in fin if l.startswith("VmHWM:"))
+
+_kernels.host_lib()
+before, hwm_before = rss_bytes(), hwm()
+with RssSampler(interval=0.001) as s:
+    g = fio.read_fasta(sys.argv[1], native=True)
+hwm_after = hwm()
+# the kernel's own high-water when the read raised it, else the samples
+peak = max(s.peak, hwm_after) if hwm_after > hwm_before else s.peak
+print(json.dumps({"before": before, "peak": peak, "bases": g.total_bases}))
+"""
+
+
+def test_native_read_rss_under_3_bytes_a_base(tmp_path):
+    """A 64 Mbp single-line FASTA read by the native reader in a fresh
+    process raises its RSS high-water by under 3 bytes a base over the
+    level just before the read: the file's mapping, the codes and the
+    soft-mask bits (about 2.1), with no copy of a base array."""
+    n = 64 << 20
+    rng = np.random.default_rng(8)
+    seq = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, n, dtype=np.uint8)]
+    path = tmp_path / "big.fa"
+    with open(path, "wb") as fout:
+        fout.write(b">chr1\n")
+        fout.write(seq.data)
+        fout.write(b"\n")
+    del seq
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _RSS_READ, str(path)], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bases"] == n
+    rise = (res["peak"] - res["before"]) / n
+    assert 1.0 < rise < 3.0, rise
 
 
 def test_read_restores_the_thread_count(tmp_path):
@@ -333,7 +479,7 @@ def test_two_processes_build_into_one_fresh_directory(tmp_path):
         assert stdout.strip() == str(out / _kernels.HOST_LIB_NAME)
     assert sorted(os.listdir(out)) == [_kernels.HOST_LIB_NAME, _kernels.HOST_LIB_NAME + ".sha256"]
     lib = ctypes.CDLL(str(out / _kernels.HOST_LIB_NAME))
-    assert lib.fastaio_parse and lib.graphwalk_chains
+    assert lib.fastaio_scan and lib.fastaio_fill and lib.graphwalk_chains
     # a third build finds the library for its digest and reuses it
     _kernels.build_host(str(out))
     assert _kernels.HOST_BUILD_INFO["cached"] is True

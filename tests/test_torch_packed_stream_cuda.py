@@ -39,7 +39,7 @@ def _genome(rng, lengths):
     return fio.PackedGenome(
         path="g.fa", name="g.fa", contig_names=[f"c{i}" for i in range(len(lengths))],
         lengths=lengths, offsets=np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64),
-        codes=codes, raw=None, fai_offsets=zeros, fai_linebases=zeros, fai_linewidth=zeros)
+        codes=codes, soft=None, fai_offsets=zeros, fai_linebases=zeros, fai_linewidth=zeros)
 
 
 @pytest.mark.cuda

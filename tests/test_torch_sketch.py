@@ -51,12 +51,21 @@ def genomes(tmp_path_factory):
 
 
 def test_fasta_reader_matches(genomes):
+    """Every field of the JAX package's genome; the port's soft mask
+    holds the case of the JAX package's raw bytes, and its k-mer strings
+    are those bytes."""
     for p in genomes:
         j, t = j_read_fasta(p), read_fasta(p)
         assert j.contig_names == t.contig_names
-        for f in ("lengths", "offsets", "codes", "raw", "fai_offsets", "fai_linebases",
+        for f in ("lengths", "offsets", "codes", "fai_offsets", "fai_linebases",
                   "fai_linewidth"):
             np.testing.assert_array_equal(getattr(j, f), getattr(t, f))
+        lower = np.isin(j.raw, np.frombuffer(b"acgt", np.uint8))
+        np.testing.assert_array_equal(t.soft, np.packbits(lower, bitorder="little"))
+        pos = np.arange(0, int(t.lengths[0]) - K + 1, 97)
+        pos = pos[(t.codes[pos[:, None] + np.arange(K)] < 4).all(axis=1)]
+        assert "".join(t.kmer_strings(0, pos, K)).encode() == \
+            j.raw[pos[:, None] + np.arange(K)].tobytes()
 
 
 def test_common_bf_cascade_matches(genomes):
