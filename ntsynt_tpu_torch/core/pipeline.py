@@ -14,8 +14,9 @@ Like snakemake's mtime DAG, an existing sketch TSV newer than its fasta
 (and the common BF) is reused instead of re-sketched, and a fresh
 byte-complete .bf is loaded instead of rebuilt; --force recomputes
 everything. A .bf is a resume stub unless ``bf_artifact="full"``.
-Spans of the host work are recorded (utils/timer.py) and, under
---benchmark, written to <prefix>.time.tsv and <prefix>.spans.tsv.
+Spans of the host work and counts of synteny's work are recorded
+(utils/timer.py) and, under --benchmark, written to <prefix>.time.tsv,
+<prefix>.spans.tsv and <prefix>.counters.tsv.
 
 Each genome's code stream goes to the device when its cascade level
 starts, packed a group at a time (ops/sketch.DeviceStream; the cascade
@@ -350,6 +351,7 @@ class NtSyntPipeline:
                             [(n, lambda n=n: _stream(n)) for n in ordered_names],
                             cfg.k, num_bits, self.device,
                             release=(lambda n: streams.pop(n, None)) if drop else None,
+                            timer=self.timer,
                         )
                     _keep(common_bf, bf_path, fresh)
         if cfg.repeat:
@@ -498,4 +500,5 @@ class NtSyntPipeline:
                 t.join()
             if cfg.benchmark:
                 self.timer.write_tsv(f"{prefix}.time.tsv", f"{prefix}.spans.tsv")
+                self.timer.write_counters(f"{prefix}.counters.tsv")
         return out

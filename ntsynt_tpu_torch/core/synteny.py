@@ -127,7 +127,8 @@ class SyntenyDetector:
         stress scale). Batch queries that are entirely graph nodes (the
         path concatenation — the only gigabase-sized caller) reuse the
         graph's cached sorted node table instead of re-sorting the
-        queries."""
+        queries. Each assembly's join in a batch is a
+        synteny.join:<assembly> span."""
         hashes = np.asarray(hashes, dtype=np.uint64)
         ctgs, poss = [], []
         if len(hashes) >= BATCH_LOOKUP:
@@ -144,9 +145,10 @@ class SyntenyDetector:
                 else:
                     uq, inv = np.unique(hashes, return_inverse=True)
                 for key in self.files:
-                    c, p = self.assemblies[key].mx_info.lookup_unique_sorted(uq)
-                    ctgs.append(c[inv])
-                    poss.append(p[inv])
+                    with self.timer.stage(f"synteny.join:{key}"):
+                        c, p = self.assemblies[key].mx_info.lookup_unique_sorted(uq)
+                        ctgs.append(c[inv])
+                        poss.append(p[inv])
                 return np.stack(ctgs), np.stack(poss)
         for key in self.files:
             c, p = self.assemblies[key].mx_info.lookup(hashes)
@@ -161,6 +163,13 @@ class SyntenyDetector:
         log("Building the minimizer graph")
         adj = [(k, self.assemblies[k].lists) for k in self.files]
         self.graph = MinimizerGraph.build(adj, self.weights)
+        self._count_graph(self.graph)
+
+    def _count_graph(self, graph, suffix: str = ""):
+        """The synteny.nodes and synteny.edges counters of a graph as
+        built (``suffix``: the refinement round's ":w<w>")."""
+        self.timer.count(f"synteny.nodes{suffix}", graph.n_nodes)
+        self.timer.count(f"synteny.edges{suffix}", graph.n_edges)
 
     def write_dot(self, path: str, graph=None):
         """Emit the minimizer graph as Graphviz (the reference's
@@ -403,6 +412,7 @@ class SyntenyDetector:
                 if segments_per_asm[key]
                 else np.zeros(0, np.uint64)
             )
+            self.timer.count(f"synteny.new_mx:w{new_w}:{key}", len(kept))
             if len(kept):
                 ctg, pos_arr = new_info[key].lookup(kept)
                 self.assemblies[key].mx_info = self.assemblies[key].mx_info.update(
@@ -421,6 +431,8 @@ class SyntenyDetector:
         with self.timer.stage(f"synteny.indel_minmx{suffix}"):
             blocks = self.indel_pass(blocks)
             blocks = self.min_mx_pass(blocks, 4)
+        self.timer.count(f"synteny.paths{suffix}", len(paths))
+        self.timer.count(f"synteny.blocks{suffix}", len(blocks))
         return blocks
 
     def refine_block_coordinates(self, blocks):
@@ -440,6 +452,7 @@ class SyntenyDetector:
                 graph = MinimizerGraph.build(
                     adj, self.weights, seed=self.graph, black_list=terminal
                 )
+            self._count_graph(graph, rnd)
             # NOTE: the reference nominally re-simplifies here, but its
             # result is immediately overwritten (bin/ntsynt_synteny.py:
             # 484-491 simplifies self.graph, then reassigns self.graph
@@ -545,6 +558,9 @@ class SyntenyDetector:
 
         with self.timer.stage("synteny.filter_common"):
             filter_common(self.assemblies)
+        for key in self.files:
+            self.timer.count(f"synteny.common_mx:{key}",
+                             sum(len(h) for h in self.assemblies[key].lists))
         with self.timer.stage("synteny.graph"):
             self.make_minimizer_graph()
         # the reference always emits the graph artifact from

@@ -27,7 +27,7 @@ import torch
 from . import bf_sweep, bloom, nthash
 from .sketch import PackedUpload, _Stream
 from .. import resolve_device
-from ..utils import log
+from ..utils import StageTimer, log
 
 SEG_KMERS = 1 << 26  # k-mers hashed and inserted per kernel launch
 # the repeat walk's segment (duplicates are found within a segment, so
@@ -74,7 +74,7 @@ def insert_stream(bf, codes, k: int, sweep: bool = False) -> None:
 
 
 def build_common_bf_from_device(entries, k: int, num_bits: int, device,
-                                release=None) -> bloom.BloomFilter:
+                                release=None, timer=None) -> bloom.BloomFilter:
     """Cascade over [(name, get) ...], already in the reference's
     lexicographic path order: get() returns the genome's code stream on
     the device (as insert_stream takes it: a DeviceStream, whose groups
@@ -86,21 +86,26 @@ def build_common_bf_from_device(entries, k: int, num_bits: int, device,
     given, is called right after that genome's level is inserted and
     ANDed, once this function holds no reference to its stream: the
     caller may then drop the stream (ntsynt_tpu/ops/bf_build.py, the
-    callable form of build_common_bf_from_device)."""
+    callable form of build_common_bf_from_device). With a StageTimer
+    ``timer``, each level is a ``bf.level:<name>`` span, from get()
+    through the insert, the AND and the occupancy read, which waits for
+    the device, so the span ends when the level is done there."""
+    timer = timer or StageTimer()
     log(f"Building common Bloom filter ({num_bits // 8} bytes) over {len(entries)} genomes")
     sweep = bf_sweep.mode() is not None and bf_sweep.supported(num_bits.bit_length() - 1)
     bf = None
     for i, (name, get) in enumerate(entries):
-        codes = get()
-        level = bloom.BloomFilter(num_bits, k, device=device)
-        insert_stream(level, codes, k, sweep=sweep)
-        del codes
-        if bf is not None:
-            level.words &= bf.words
-        bf = level
-        if release is not None:
-            release(name)
-        occ = bf.fpr()
+        with timer.stage(f"bf.level:{name}"):
+            codes = get()
+            level = bloom.BloomFilter(num_bits, k, device=device)
+            insert_stream(level, codes, k, sweep=sweep)
+            del codes
+            if bf is not None:
+                level.words &= bf.words
+            bf = level
+            if release is not None:
+                release(name)
+            occ = bf.fpr()
         if i == 0:
             log(f"Level-1 BF occupancy/FPR: {occ:.4f}")
         else:

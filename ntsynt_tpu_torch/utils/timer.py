@@ -11,7 +11,9 @@ chrome trace uses (its ``baseTimeNanoseconds``), so a job's host work
 lines up with a trace of the same job. Spans stay in memory and are
 written once, at the end: ``<prefix>.time.tsv``, one row per name, with
 the role of the reference's benchmark TSVs (wall seconds + peak memory),
-and ``<prefix>.spans.tsv``, one row per span.
+and ``<prefix>.spans.tsv``, one row per span. ``StageTimer.count(name,
+value)`` adds to a named counter (how much work a stage had: graph
+nodes, paths, minimizers kept), written as ``<prefix>.counters.tsv``.
 
 After ``track_memory`` one sampler thread reads the process RSS every
 ``sample_interval`` seconds and credits it to every span open at that
@@ -66,6 +68,7 @@ class StageTimer:
         self._lock = threading.Lock()
         self._open = {}  # id -> span open now, on any thread
         self._sampler = None
+        self.counters = {}  # name -> summed value, in the order each was first counted
 
     def track_memory(self, device) -> None:
         """From now on, record each span's host RSS high-water, and on a
@@ -81,6 +84,11 @@ class StageTimer:
         for s in self.spans:
             out[s.name] = out.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e9
         return out
+
+    def count(self, name: str, value) -> None:
+        """Add value to the counter ``name`` (from any thread)."""
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + value
 
     def _stack(self) -> list:
         st = getattr(self._tls, "stack", None)
@@ -185,3 +193,15 @@ class StageTimer:
             for s, end in sorted(snap, key=lambda se: se[0].start_ns):
                 parent = "-" if s.parent is None else s.parent.name
                 fout.write(f"{s.name}\t{parent}\t{s.thread}\t{s.start_ns}\t{end}\n")
+
+    def write_counters(self, path: str) -> None:
+        """counters.tsv at ``path``: one row per counter (name, value),
+        in the order each was first counted; no file when nothing was
+        counted."""
+        with self._lock:
+            rows = list(self.counters.items())
+        if not rows:
+            return
+        with open(path, "w", encoding="utf-8") as fout:
+            fout.write("name\tvalue\n")
+            fout.writelines(f"{name}\t{value}\n" for name, value in rows)

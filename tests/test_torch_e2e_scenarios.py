@@ -2,7 +2,8 @@
 remaining tests/test_e2e.py scenarios: translocation, insertion,
 --no-common, dry run and artifacts, and sketch-artifact reuse. Every
 artifact must be byte-identical (the per-stage timings of --benchmark
-excepted, whose outer stage names must agree, and the port's spans.tsv)."""
+excepted, whose outer stage names must agree, and the port's spans.tsv
+and counters.tsv, which the JAX package does not write)."""
 
 import os
 
@@ -124,7 +125,7 @@ def test_dry_run_and_artifacts_identical(tmp_path, base_genome, monkeypatch, cap
     assert len(steps) == 2 * 6 and steps[:6] == steps[6:]  # the same plan from both CLIs
     # a real run with --benchmark: every artifact, the timings' stage names
     j, t = _run_both(tmp_path, [fa, fb], monkeypatch, extra=["--benchmark"],
-                     skip=("test.time.tsv", "test.spans.tsv"))
+                     skip=("test.time.tsv", "test.spans.tsv", "test.counters.tsv"))
     _assert_same(j, t)
     for f in ("x.fa.fai", "y.fa.fai", "x.fa.k24.w100.tsv", "test.common.bf",
               "test.pre-collinear-merge.synteny_blocks.tsv"):
@@ -132,6 +133,7 @@ def test_dry_run_and_artifacts_identical(tmp_path, base_genome, monkeypatch, cap
     assert _stage_names((tmp_path / "torch" / "test.time.tsv").read_bytes()) == _stage_names(
         (tmp_path / "jax" / "test.time.tsv").read_bytes()
     )
+    assert (tmp_path / "torch" / "test.counters.tsv").exists()
 
 
 def test_sketch_artifact_reuse_identical(tmp_path, base_genome, monkeypatch):
@@ -140,7 +142,7 @@ def test_sketch_artifact_reuse_identical(tmp_path, base_genome, monkeypatch):
     fa = write_fasta(tmp_path / "r1.fa", [("chr1", base_genome)])
     fb = write_fasta(tmp_path / "r2.fa", [("chr1", base_genome)])
     j, t = _run_both(tmp_path, [fa, fb], monkeypatch, extra=["--benchmark"],
-                     skip=("test.time.tsv", "test.spans.tsv"), runs=2)
+                     skip=("test.time.tsv", "test.spans.tsv", "test.counters.tsv"), runs=2)
     _assert_same(j, t)
     for name in ("jax", "torch"):
         stages = _stage_names((tmp_path / name / "test.time.tsv").read_bytes())

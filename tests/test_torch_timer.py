@@ -1,8 +1,10 @@
 """The port's StageTimer (utils/timer.py) and the spans the pipeline
 records with it: parents per thread, the unix clock, time.tsv's calls and
 self_s, spans.tsv against time.tsv, one RSS sampler thread, and a CLI run
-seen through a wrapper of StageTimer.stage like the benchmark's."""
+seen through a wrapper of StageTimer.stage like the benchmark's; its
+counters (StageTimer.count) and counters.tsv."""
 
+import sys
 import threading
 import time
 
@@ -149,6 +151,7 @@ def test_one_sampler_thread_however_deep():
 # every family of spans the pipeline records, and the thread it runs on
 FAMILIES = {
     "setup": "MainThread", "finish": "MainThread", "make_common_bf": "MainThread",
+    "bf.level:": "MainThread", "synteny.join:": "MainThread",
     "read_fasta:": "read_prefetch", "wait_read:": "MainThread", "sketch:": "MainThread",
     "upload.pack:": "MainThread", "upload.legit:": "MainThread", "synteny": "MainThread",
     "synteny.filter_common": "MainThread", "synteny.graph": "MainThread",
@@ -167,9 +170,8 @@ FAMILIES = {
 # which the CLI never writes
 
 
-def test_cli_spans_through_the_benchmark_wrapper(tmp_path, monkeypatch):
-    from synbench.job import _record_stages
-
+def _pair(tmp_path):
+    """Two 300 kb genomes, the second inverted at 100-150 kb; their paths."""
     rng = np.random.default_rng(3)
     a = rng.integers(0, 4, 300_000).astype(np.uint8)
     b = a.copy()
@@ -181,6 +183,80 @@ def test_cli_spans_through_the_benchmark_wrapper(tmp_path, monkeypatch):
         (tmp_path / name).write_text(">c1\n" + "\n".join(s[i:i + 70] for i in range(0, len(s), 70))
                                      + "\n")
         paths.append(str(tmp_path / name))
+    return paths
+
+
+def test_count_sums_a_name_counted_twice(tmp_path):
+    timer = StageTimer()
+    timer.count("nodes", 3)
+    timer.count("edges", 2)
+    timer.count("nodes", 4)
+    assert timer.counters == {"nodes": 7, "edges": 2}
+    timer.write_counters(str(tmp_path / "t.counters.tsv"))
+    assert (tmp_path / "t.counters.tsv").read_text() == "name\tvalue\nnodes\t7\nedges\t2\n"
+
+
+def test_count_from_many_threads():
+    timer = StageTimer()
+
+    def add():
+        for _ in range(2000):
+            timer.count("n", 1)
+
+    threads = [threading.Thread(target=add) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads often: a lost update would show
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(10)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert timer.counters == {"n": 16000}
+
+
+def test_no_counters_no_file(tmp_path):
+    timer = StageTimer()
+    with timer.stage("a"):
+        pass
+    timer.write_counters(str(tmp_path / "t.counters.tsv"))
+    assert not (tmp_path / "t.counters.tsv").exists()
+
+
+@pytest.mark.parametrize("benchmark", [True, False])
+def test_counters_tsv_only_with_benchmark(tmp_path, monkeypatch, benchmark):
+    paths = _pair(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    assert torch_main([*paths, "-d", "1", "-w", "250", "--device", "cpu", "-p", "t",
+                       *(["--benchmark"] if benchmark else [])]) == 0
+    path = tmp_path / "t.counters.tsv"
+    assert path.exists() == benchmark and (tmp_path / "t.time.tsv").exists() == benchmark
+    if not benchmark:
+        return
+    head, rows = _read_tsv(path)
+    assert head == ["name", "value"]
+    got = {r["name"]: int(r["value"]) for r in rows}
+    rounds = ["", ":w250", ":w100"]  # -d 1: --w_rounds 250 100
+    want = {f"synteny.common_mx:{g}" for g in ("ta.fa", "tb.fa")}
+    want |= {f"synteny.{n}{r}" for n in ("nodes", "edges", "paths", "blocks") for r in rounds}
+    want |= {f"synteny.new_mx:{r[1:]}:{g}" for r in rounds[1:] for g in ("ta.fa", "tb.fa")}
+    assert set(got) == want
+    assert all(v > 0 for v in got.values()), got
+    # a path holds at least two nodes; a path gives at most one block
+    assert got["synteny.nodes"] >= 2 * got["synteny.paths"]
+    assert got["synteny.paths"] >= got["synteny.blocks"]
+    # the common filter keeps the same minimizers in both assemblies
+    assert got["synteny.common_mx:ta.fa"] == got["synteny.common_mx:tb.fa"]
+    blocks = (tmp_path / "t.synteny_blocks.tsv").read_text().splitlines()
+    assert len({r.split("\t")[0] for r in blocks}) <= got["synteny.blocks:w100"]
+
+
+def test_cli_spans_through_the_benchmark_wrapper(tmp_path, monkeypatch):
+    from synbench.job import _record_stages
+
+    paths = _pair(tmp_path)
     real_read = fio.read_fasta
 
     def slow_read(*args, **kw):  # the main thread reaches the first genome before it is read
