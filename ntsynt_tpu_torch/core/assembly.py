@@ -6,8 +6,11 @@ Reconstructs the missing ntJoin layer's data contracts
   * read_minimizers: per-contig ordered minimizer lists with
     within-assembly duplicate hashes dropped entirely;
   * filter_minimizers: keep only minimizers present in ALL assemblies;
-  * list_mx_info: hash -> (contig, position), updatable across
-    refinement rounds (update_list_mx_info, bin/ntsynt_synteny.py:282-290).
+  * list_mx_info: hash -> (contig, position). Synteny reads it only
+    for a refinement round's new minimizers: the graph's nodes carry
+    their own contig and position (graph/mxgraph.MinimizerGraph), which
+    is where update_list_mx_info's merges (bin/ntsynt_synteny.py:282-290)
+    land.
 
 Assembly keys are the genome file basenames (the reference keys by the
 sketch TSV filename; we strip the .k<k>.w<w>.tsv suffix at print time
@@ -57,12 +60,10 @@ class MxInfo:
 
     @classmethod
     def from_arrays(cls, hashes, ctg, pos) -> "MxInfo":
-        """Build from parallel arrays. ``hashes`` MUST be duplicate-free:
-        lookup()'s >=2^18 sort-merge fast path resolves table duplicates
-        last-write-wins while the searchsorted path returns the first
-        match, so duplicates would make results batch-size-dependent.
-        All construction paths dedupe first (read_minimizers semantics);
-        this check keeps a future caller from silently violating that."""
+        """Build from parallel arrays. ``hashes`` MUST be duplicate-free
+        (a hash names one position): all construction paths dedupe first
+        (read_minimizers semantics); this check keeps a future caller
+        from silently violating that."""
         return cls.from_arrays_with_order(hashes, ctg, pos)[0]
 
     @classmethod
@@ -85,57 +86,17 @@ class MxInfo:
         )
 
     def lookup(self, hashes):
-        """Vectorized lookup; raises KeyError on a missing hash.
-
-        Large batches switch to a sort-merge join: binary-searching 10^6
-        random-order queries costs ~20 random DRAM touches each, while
-        sorting the queries once and scanning the (already sorted) table
-        with ascending probes is cache-sequential — ~3x faster at the
-        6M-node stress scale (tests/test_scale.py)."""
+        """Vectorized lookup; raises KeyError on a missing hash."""
         hashes = np.asarray(hashes, dtype=np.uint64)
         n = len(self.sorted_hash)
         if len(hashes) == 0:
             return np.zeros(0, np.int32), np.zeros(0, np.int64)
         if n == 0:
             raise KeyError("minimizer hash not in mx_info")
-        if len(hashes) >= (1 << 18):
-            uq, inv = np.unique(hashes, return_inverse=True)
-            ctg_u, pos_u = self.lookup_unique_sorted(uq)
-            return ctg_u[inv], pos_u[inv]
         loc = np.searchsorted(self.sorted_hash, hashes)
         if ((loc >= n) | (self.sorted_hash[np.minimum(loc, n - 1)] != hashes)).any():
             raise KeyError("minimizer hash not in mx_info")
         return self.ctg[loc], self.pos[loc]
-
-    def lookup_unique_sorted(self, uq):
-        """Sort-merge lookup of an already-sorted duplicate-free query
-        array (the >=2^18 fast path of lookup(), with the query sort
-        hoisted so multi-assembly callers pay it once — see
-        SyntenyDetector._lookup)."""
-        loc_u = np.minimum(np.searchsorted(uq, self.sorted_hash), len(uq) - 1)
-        hit = uq[loc_u] == self.sorted_hash  # ascending probes
-        tgt = loc_u[hit]
-        ctg_u = np.empty(len(uq), np.int32)
-        pos_u = np.empty(len(uq), np.int64)
-        found = np.zeros(len(uq), dtype=bool)
-        ctg_u[tgt] = self.ctg[hit]
-        pos_u[tgt] = self.pos[hit]
-        found[tgt] = True
-        if not found.all():
-            raise KeyError("minimizer hash not in mx_info")
-        return ctg_u, pos_u
-
-    def update(self, hashes, ctg, pos) -> "MxInfo":
-        """Merge in new entries; on duplicate hash the NEW value wins
-        (update_list_mx_info overwrites, bin/ntsynt_synteny.py:287-290)."""
-        if len(hashes) == 0:
-            return self
-        old_keep = ~_membership(self.sorted_hash, np.unique(np.asarray(hashes, np.uint64)))
-        return MxInfo.from_arrays(
-            np.concatenate([self.sorted_hash[old_keep], np.asarray(hashes, np.uint64)]),
-            np.concatenate([self.ctg[old_keep], np.asarray(ctg, np.int32)]),
-            np.concatenate([self.pos[old_keep], np.asarray(pos, np.int64)]),
-        )
 
 
 @dataclass
@@ -146,15 +107,25 @@ class AssemblyMinimizers:
     contig_names: list
     # per-contig ordered, deduped minimizer hashes / positions
     lists: list  # list of uint64 arrays (one per contig, contig order)
-    mx_info: MxInfo
+    pos_lists: list  # list of int64 arrays aligned with `lists`
+    mx_info: MxInfo | None
     genome: object | None = None  # io.fasta.PackedGenome when available
     # argsort permutation of concat(lists) (== the mx_info table order)
     # from construction; filter_common reuses it while lists are intact
     sort_order: np.ndarray | None = None
-    # per-contig positions aligned with `lists` (construction layout);
-    # refinement rounds read these instead of per-contig mx_info
-    # lookups (10^3-10^4 binary-search batches per round otherwise)
-    pos_lists: list | None = None
+
+    def columns(self):
+        """(ctg int32, pos int64) of each minimizer of concat(lists): the
+        graph's node columns for this assembly."""
+        lens = [len(h) for h in self.lists]
+        ctg = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
+        pos = np.concatenate(self.pos_lists) if lens else np.zeros(0, np.int64)
+        return ctg, pos
+
+    def release(self):
+        """Drop the lists once a graph holds their columns: synteny reads
+        nothing else of them afterwards."""
+        self.lists = self.pos_lists = self.sort_order = None
 
     @classmethod
     def from_sketch(cls, sk, genome=None, repeat_canon_filter=None) -> "AssemblyMinimizers":
@@ -245,8 +216,8 @@ def filter_common(assemblies: dict) -> None:
     (ntjoin_utils.filter_minimizers contract; SURVEY.md §2.4).
 
     `assemblies` maps key -> AssemblyMinimizers; each assembly's lists
-    are filtered to the cross-assembly intersection. mx_info is left
-    as-is (the reference keeps full mx_info too).
+    and pos_lists are filtered to the cross-assembly intersection.
+    mx_info is left as-is (the reference keeps full mx_info too).
     """
     flats = [
         np.concatenate(a.lists) if a.lists else np.zeros(0, np.uint64)
@@ -279,10 +250,11 @@ def filter_common(assemblies: dict) -> None:
         kept_cum = np.concatenate([[0], np.cumsum(keep)])
         bounds = np.concatenate([[0], np.cumsum(lens)])
         kept_per_list = kept_cum[bounds[1:]] - kept_cum[bounds[:-1]]
-        a.lists = np.split(flat[keep], np.cumsum(kept_per_list)[:-1])
+        cuts = np.cumsum(kept_per_list)[:-1]
+        a.lists = np.split(flat[keep], cuts)
+        a.pos_lists = np.split(np.concatenate(a.pos_lists)[keep], cuts)
         if not keep.all():
             a.sort_order = None  # lists changed; cached order is stale
-            a.pos_lists = None  # positions no longer align with lists
 
 
 def filter_segments_common(segments_per_asm: dict) -> dict:

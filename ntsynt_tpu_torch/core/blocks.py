@@ -36,10 +36,12 @@ class Block:
 
     Assemblies are indexed in canonical FILES order; `names[a]` is the
     assembly key, `ctg[a]` the per-assembly contig index, `pos[a, i]`
-    the position of minimizer i in assembly a.
+    the position of minimizer i in assembly a, `ids[i]` minimizer i's
+    node id in the graph the block was found in.
     """
 
     mx: np.ndarray  # uint64 [L]
+    ids: np.ndarray  # int [L]
     pos: np.ndarray  # int64 [n_asm, L]
     ctg: np.ndarray  # int32 [n_asm]
     k: int
@@ -87,6 +89,7 @@ class Block:
         """Sub-block on minimizer index range [begin, end)."""
         return Block(
             mx=self.mx[begin:end],
+            ids=self.ids[begin:end],
             pos=self.pos[:, begin:end],
             ctg=self.ctg,
             k=self.k,
@@ -153,81 +156,44 @@ class BlockSet:
 # ---------------------------------------------------------------------------
 
 
-def blocks_from_path(path_mx, lookup, k: int, m_threshold: float):
-    """Turn ONE graph path into its surviving synteny block (scalar
-    oracle; production uses blocks_from_paths_batch — the two are
-    differential-tested in tests/test_blocks.py).
-
-    Replicates find_synteny_blocks (bin/ntsynt_synteny.py:66-106)
-    *including its quirk*: `past_start_flag` is never set there, so when
-    a path's contig set changes mid-way, every segment before the LAST
-    one is silently discarded (kept out of the output without having its
-    nodes removed from the graph). Only the final segment becomes a
-    block; it is returned, or its minimizer hashes are returned for
-    removal if its orientation vote fails. With the default minimum edge
-    weight (= #assemblies) a path can never change contigs mid-way, so
-    the quirk is unreachable — but we mirror it for non-default -n runs.
-
-    Args:
-      path_mx: uint64 [L] ordered minimizer hashes.
-      lookup: callable(hashes u64[L]) -> (ctg int32 [n_asm, L],
-        pos int64 [n_asm, L]) in canonical FILES order.
-      k, m_threshold: block parameters.
-
-    Returns:
-      (block or None, to_remove_hashes or None)
-    """
-    ctg, pos = lookup(path_mx)
-    # find the last contig-change point in any assembly
-    if ctg.shape[1] > 1:
-        change = (ctg[:, 1:] != ctg[:, :-1]).any(axis=0)
-        change_points = np.where(change)[0]
-        start = int(change_points[-1]) + 1 if len(change_points) else 0
-    else:
-        start = 0
-    block = Block(
-        mx=path_mx[start:],
-        pos=pos[:, start:],
-        ctg=ctg[:, start].astype(np.int32),
-        k=k,
-    )
-    block.determine_orientations(m_threshold)
-    if block.all_oriented():
-        return block, None
-    return None, block.mx
-
-
-def blocks_from_paths_batch(paths, lookup, rep_a: int, k: int, m_threshold: float):
+def blocks_from_paths_batch(paths, gather, rep_a: int, k: int, m_threshold: float):
     """Vectorized find_synteny_blocks over ALL paths at once
     (bin/ntsynt_synteny.py:543-546 + 66-106 semantics, incl. the
     past_start_flag quirk and the representative-ascends direction
-    normalization). One batched ``lookup`` over the concatenation of all
-    paths replaces the per-path lookups (each a searchsorted over every
-    assembly's full minimizer table — the dominant cost at ~10^5 paths),
-    and the trim/orientation votes run as segmented NumPy reductions.
+    normalization). One ``gather`` of the graph nodes' columns over the
+    concatenation of all paths replaces the per-path lookups, and the
+    trim/orientation votes run as segmented NumPy reductions.
+
+    The past_start_flag quirk: that flag is never set in the reference,
+    so when a path's contig set changes mid-way, every segment before
+    the LAST one is silently discarded (kept out of the output without
+    having its nodes removed from the graph). Only the final segment
+    becomes a block, or its nodes are removed if its orientation vote
+    fails. With the default minimum edge weight (= #assemblies) a path
+    never changes contigs mid-way, but non-default -n runs can.
 
     Args:
-      paths: list of uint64 arrays (ordered minimizer hashes).
-      lookup: callable(hashes u64[T]) -> (ctg int32 [n_asm, T],
-        pos int64 [n_asm, T]) in canonical FILES order.
+      paths: list of node-id arrays (graph.linear_path_ids()).
+      gather: callable(ids [T]) -> (hashes u64 [T], ctg int32
+        [n_asm, T], pos int64 [n_asm, T]) in canonical FILES order.
       rep_a: FILES index of the representative (lexicographically
         smallest) assembly; paths are flipped so it ascends.
       k, m_threshold: block parameters.
 
-    Returns (blocks, to_remove_hashes): surviving Blocks in path order
-    plus the concatenated minimizers of orientation-vote failures.
+    Returns (blocks, to_remove_ids): surviving Blocks in path order
+    plus the concatenated node ids of orientation-vote failures.
     """
-    paths = [np.asarray(p, dtype=np.uint64) for p in paths if len(p) >= 2]
+    paths = [p for p in paths if len(p) >= 2]
     if not paths:
-        return [], np.zeros(0, np.uint64)
+        return [], np.zeros(0, np.int64)
     lens = np.asarray([len(p) for p in paths], dtype=np.int64)
     off = np.concatenate([[0], np.cumsum(lens)])
-    cat = np.concatenate(paths)
-    t = len(cat)
+    ids = np.concatenate(paths)
+    t = len(ids)
     n_paths = len(paths)
     pid = np.repeat(np.arange(n_paths, dtype=np.int64), lens)
 
-    ctg, pos = lookup(cat)
+    cat, ctg, pos = gather(ids)
 
     # -- direction normalization: representative assembly ascends ------
     first, last = off[:-1], off[1:] - 1
@@ -236,7 +202,7 @@ def blocks_from_paths_batch(paths, lookup, rep_a: int, k: int, m_threshold: floa
         idx = np.arange(t, dtype=np.int64)
         rev = off[pid] + (off[pid + 1] - 1) - idx
         idx = np.where(flip[pid], rev, idx)
-        cat, ctg, pos = cat[idx], ctg[:, idx], pos[:, idx]
+        cat, ids, ctg, pos = cat[idx], ids[idx], ctg[:, idx], pos[:, idx]
 
     # -- past_start_flag quirk: keep only the segment after the LAST
     #    contig change in any assembly ------------------------------
@@ -286,6 +252,7 @@ def blocks_from_paths_batch(paths, lookup, rep_a: int, k: int, m_threshold: floa
         s, e = seg_start_l[p], end_l[p]
         block = Block(
             mx=cat[s:e],
+            ids=ids[s:e],
             pos=pos[:, s:e],
             ctg=ctg_starts[p],
             k=k,
@@ -294,8 +261,8 @@ def blocks_from_paths_batch(paths, lookup, rep_a: int, k: int, m_threshold: floa
         if oriented_l[p]:
             blocks.append(block)
         else:
-            removed.append(block.mx)
-    removed = np.concatenate(removed) if removed else np.zeros(0, np.uint64)
+            removed.append(block.ids)
+    removed = np.concatenate(removed) if removed else np.zeros(0, np.int64)
     return blocks, removed
 
 
@@ -304,15 +271,16 @@ def check_for_indels(blocks, bp: int):
 
     A break occurs between minimizers i, i+1 when the spread of
     per-assembly interarrival distances exceeds bp. Returns
-    (new_blocks, removed_edge_hash_pairs).
+    (new_blocks, (u_ids, v_ids)): the node ids of each broken pair.
 
     Batched: ONE segmented spread test over the concatenation of all
     blocks (a per-block numpy loop cost ~2 s at the 10^5-block stress
     scale, tests/test_scale.py); only blocks that actually break pay
     per-block Python.
     """
+    none = np.zeros(0, np.int64)
     if not blocks:
-        return [], []
+        return [], (none, none)
     lens = np.asarray([b.n_minimizers for b in blocks], dtype=np.int64)
     offs = np.concatenate([[0], np.cumsum(lens)])
     cat_pos = np.concatenate([b.pos for b in blocks], axis=1).astype(np.int64, copy=False)
@@ -322,12 +290,10 @@ def check_for_indels(blocks, bp: int):
     spread = d.max(axis=0) - d.min(axis=0)
     brk = internal & (spread > bp)
     if not brk.any():
-        return list(blocks), []
-    cat_mx = np.concatenate([b.mx for b in blocks])
+        return list(blocks), (none, none)
+    cat_ids = np.concatenate([b.ids for b in blocks])
     brk_idx = np.flatnonzero(brk)
-    removed_edges = list(
-        zip(cat_mx[brk_idx].tolist(), cat_mx[brk_idx + 1].tolist())
-    )
+    removed_edges = (cat_ids[brk_idx], cat_ids[brk_idx + 1])
     breaks_per_block = np.split(brk_idx, np.searchsorted(brk_idx, offs[1:-1]))
     out = []
     for b, (o, blk_breaks) in zip(blocks, zip(offs[:-1], breaks_per_block)):
@@ -342,14 +308,14 @@ def check_for_indels(blocks, bp: int):
 
 def filter_blocks_min_mx(blocks, mx_threshold: int):
     """Drop blocks with fewer than mx_threshold minimizers
-    (bin/ntsynt_synteny.py:411-426). Returns (kept, removed_hashes)."""
-    kept, removed = [], []
+    (bin/ntsynt_synteny.py:411-426). Returns (kept, removed node ids)."""
+    kept, removed = [], [np.zeros(0, np.int64)]
     for block in blocks:
         if block.n_minimizers >= mx_threshold:
             kept.append(block)
         else:
-            removed.extend(block.mx.tolist())
-    return kept, removed
+            removed.append(block.ids)
+    return kept, np.concatenate(removed)
 
 
 def _difference_between(b1: Block, b2: Block, a: int) -> int:
@@ -399,6 +365,7 @@ def merge_collinear_blocks(blocks, bp: int, k: int, collinear_merge: int):
         else:
             curr = Block(
                 mx=np.concatenate([curr.mx, block.mx]),
+                ids=np.concatenate([curr.ids, block.ids]),
                 pos=np.concatenate([curr.pos, block.pos], axis=1),
                 ctg=curr.ctg,
                 k=curr.k,

@@ -40,16 +40,18 @@ def find_mx_in_blocks(blocks, assembly_keys):
     index of block interiors (bin/ntsynt_synteny.py:205-226).
 
     Returns (terminal_mx set-as-array, internal_mx sorted array,
-    intervals: dict (asm_idx, ctg_idx) -> IntervalIndex).
+    intervals: dict (asm_idx, ctg_idx) -> IntervalIndex). The internal
+    array is only searched (filter_new_minimizer_lists), so it is
+    sorted, not deduplicated: np.unique's hash table (NumPy >= 2.3)
+    costs many times a sort over a genome's block interiors.
     """
     terminal = []
-    internal = []
+    interiors = [np.zeros(0, np.uint64)]
     pending = defaultdict(lambda: ([], []))  # (a, ctg) -> (starts, ends)
     for block in blocks:
         terminal.append(int(block.mx[0]))
         terminal.append(int(block.mx[-1]))
-        if block.n_minimizers > 2:
-            internal.extend(block.mx[1:-1].tolist())
+        interiors.append(block.mx[1:-1])
         for a in range(block.pos.shape[0]):
             p0, p1 = int(block.pos[a, 0]), int(block.pos[a, -1])
             start, end = (p0, p1) if p0 <= p1 else (p1, p0)
@@ -61,7 +63,7 @@ def find_mx_in_blocks(blocks, assembly_keys):
     intervals = {key: IntervalIndex(st, en) for key, (st, en) in pending.items()}
     return (
         np.asarray(terminal, dtype=np.uint64),
-        np.unique(np.asarray(internal, dtype=np.uint64)),
+        np.sort(np.concatenate(interiors)),
         intervals,
     )
 

@@ -80,11 +80,6 @@ class SyntenyParams:
         )
 
 
-# queries from which _lookup sorts them once and joins every assembly
-# against the one sorted view (a synteny.lookup span)
-BATCH_LOOKUP = 1 << 18
-
-
 class SyntenyDetector:
     """One synteny run over N assemblies."""
 
@@ -118,51 +113,40 @@ class SyntenyDetector:
     # ------------------------------------------------------------------
     # lookups
     # ------------------------------------------------------------------
-    def _lookup(self, hashes):
-        """(ctg, pos) matrices [n_asm, L] in FILES order.
-
-        Large batches sort/unique the queries ONCE and reuse the sorted
-        view for every assembly's sort-merge join (the per-assembly
-        np.unique re-sorts were ~2/3 of the lookup cost at the 6M-node
-        stress scale). Batch queries that are entirely graph nodes (the
-        path concatenation — the only gigabase-sized caller) reuse the
-        graph's cached sorted node table instead of re-sorting the
-        queries. Each assembly's join in a batch is a
-        synteny.join:<assembly> span."""
-        hashes = np.asarray(hashes, dtype=np.uint64)
-        ctgs, poss = [], []
-        if len(hashes) >= BATCH_LOOKUP:
-            with self.timer.stage("synteny.lookup"):
-                g = self.graph
-                g._ensure_lookup()
-                sh = g._sorted_hash
-                if len(sh):
-                    loc = np.minimum(np.searchsorted(sh, hashes), len(sh) - 1)
-                    if bool((sh[loc] == hashes).all()):
-                        uq, inv = sh, loc  # queries are all graph nodes
-                    else:
-                        uq, inv = np.unique(hashes, return_inverse=True)
-                else:
-                    uq, inv = np.unique(hashes, return_inverse=True)
-                for key in self.files:
-                    with self.timer.stage(f"synteny.join:{key}"):
-                        c, p = self.assemblies[key].mx_info.lookup_unique_sorted(uq)
-                        ctgs.append(c[inv])
-                        poss.append(p[inv])
-                return np.stack(ctgs), np.stack(poss)
-        for key in self.files:
-            c, p = self.assemblies[key].mx_info.lookup(hashes)
-            ctgs.append(c)
-            poss.append(p)
-        return np.stack(ctgs), np.stack(poss)
+    def _gather(self, ids, suffix: str = ""):
+        """(hashes [L], ctg [n_asm, L], pos [n_asm, L]) of graph nodes by
+        id, assemblies in FILES order: what each assembly's mx_info,
+        merged with every round's kept minimizers, would answer for the
+        nodes' hashes, read from the node columns. A
+        synteny.lookup span, each assembly's gather a synteny.join:<a>
+        span inside it; the synteny.gathered<suffix> counter counts the
+        nodes."""
+        g = self.graph
+        ctg = np.empty((len(self.files), len(ids)), np.int32)
+        pos = np.empty((len(self.files), len(ids)), np.int64)
+        with self.timer.stage("synteny.lookup"):
+            for a, key in enumerate(self.files):
+                with self.timer.stage(f"synteny.join:{key}"):
+                    np.take(g.node_ctg[a], ids, out=ctg[a])
+                    np.take(g.node_pos[a], ids, out=pos[a])
+            hashes = g.node_hash[ids]
+        self.timer.count(f"synteny.gathered{suffix}", len(ids))
+        return hashes, ctg, pos
 
     # ------------------------------------------------------------------
     # stages
     # ------------------------------------------------------------------
     def make_minimizer_graph(self):
+        """The first graph, its nodes' columns from the assemblies'
+        lists, which are then released."""
         log("Building the minimizer graph")
-        adj = [(k, self.assemblies[k].lists) for k in self.files]
-        self.graph = MinimizerGraph.build(adj, self.weights)
+        asms = [self.assemblies[k] for k in self.files]
+        self.graph = MinimizerGraph.build(
+            [(a.key, a.lists) for a in asms], self.weights,
+            columns=[a.columns() for a in asms],
+        )
+        for a in asms:
+            a.release()
         self._count_graph(self.graph)
 
     def _count_graph(self, graph, suffix: str = ""):
@@ -205,62 +189,47 @@ class SyntenyDetector:
         t.start()
         return t
 
-    def paths_to_blocks(self, paths):
+    def paths_to_blocks(self, paths, suffix: str = ""):
         """find_paths_synteny_blocks (bin/ntsynt_synteny.py:543-546),
-        batched: ONE lookup over the concatenation of all paths +
+        batched: ONE gather over the concatenation of all paths +
         segmented trim/orientation votes (core/blocks.py
-        blocks_from_paths_batch) instead of per-path lookups."""
+        blocks_from_paths_batch) instead of per-path lookups. Returns
+        the blocks and the node ids of the paths that failed the vote."""
         log("Finding synteny blocks")
         rep_a = self.files.index(self.rep)
         out, removed = blk.blocks_from_paths_batch(
-            paths, self._lookup, rep_a, self.params.k, self.params.m
+            paths, lambda ids: self._gather(ids, suffix), rep_a,
+            self.params.k, self.params.m,
         )
-        if len(removed):
-            if self.params.dev:
-                log(
-                    "Not oriented:", len(removed), "minimizers across",
-                    len(paths) - len(out), "paths", dev_only=True,
-                )
-            self.graph = self.graph.delete_nodes_by_hash(removed)
-        return out
-
-    def indel_pass(self, blocks):
-        """check_for_indels + graph edge removal (bin/ntsynt_synteny.py:391-409)."""
-        blocks, removed_edges = blk.check_for_indels(blocks, self.params.bp)
-        if removed_edges:
-            edge_ids = [self.graph.edge_id(u, v) for u, v in removed_edges]
-            self.graph = self.graph.delete_edges(edge_ids)
-        return blocks
-
-    def min_mx_pass(self, blocks, threshold=4):
-        """filter_synteny_blocks (bin/ntsynt_synteny.py:411-426)."""
-        blocks, removed = blk.filter_blocks_min_mx(blocks, threshold)
-        if removed:
-            self.graph = self.graph.delete_nodes_by_hash(
-                np.asarray(removed, dtype=np.uint64)
+        if len(removed) and self.params.dev:
+            log(
+                "Not oriented:", len(removed), "minimizers across",
+                len(paths) - len(out), "paths", dev_only=True,
             )
-        return blocks
+        return out, removed
 
     # -- erosion (last refinement round) --------------------------------
     def _erode_edges(self, src_idx: int, tgt_idx: int, indptr, eids, other):
         """erode_edges (bin/ntsynt_synteny.py:312-340): walk inward from a
         sub-threshold edge's endpoints while the two frontier minimizers
         physically overlap (< k apart in any assembly), alternating
-        sides, collecting incident edges to remove."""
+        sides, collecting incident edges to remove. Returns the edges and
+        the node positions gathered."""
         g = self.graph
         k = self.params.k
+        pos = g.node_pos
+        gathered = 0
 
-        def overlaps(h1, h2):
-            _, p = self._lookup(np.asarray([h1, h2], dtype=np.uint64))
-            return bool((np.abs(p[:, 0] - p[:, 1]) < k).any())
+        def overlaps(u, v):
+            nonlocal gathered
+            gathered += 2
+            return bool((np.abs(pos[:, u] - pos[:, v]) < k).any())
 
         erode_target = True
         cur_s, cur_t = src_idx, tgt_idx
         return_edges = set()
         visited = {cur_s, cur_t}
-        name_s = int(g.node_hash[cur_s])
-        name_t = int(g.node_hash[cur_t])
-        while overlaps(name_s, name_t):
+        while overlaps(cur_s, cur_t):
             v = cur_t if erode_target else cur_s
             ids_v = eids[indptr[v] : indptr[v + 1]]
             nb_v = other[indptr[v] : indptr[v + 1]]
@@ -284,43 +253,42 @@ class SyntenyDetector:
             visited.add(nxt)
             if erode_target:
                 cur_t = nxt
-                name_t = int(g.node_hash[cur_t])
             else:
                 cur_s = nxt
-                name_s = int(g.node_hash[cur_s])
             erode_target = not erode_target
-        return return_edges
+        return return_edges, gathered
 
-    def refine_graph_erosion(self, flagged_pairs):
+    def refine_graph_erosion(self, flagged_pairs, suffix: str = ""):
         """refine_graph (bin/ntsynt_synteny.py:343-362).
 
-        flagged_pairs is the (u_hashes, v_hashes) array pair from
+        flagged_pairs is the (u, v) node-id array pair from
         filter_global(flag=True). Both-degree-1 eligibility is computed
         as a vectorized mask FIRST — the last refinement round can flag
         millions of dropped edges at gigabase scale, and only a handful
         survive the degree test — so the Python-level erosion walk loops
         over survivors only (the reference loops all pairs,
-        bin/ntsynt_synteny.py:346-358; its scale never hurt)."""
-        hu_all, hv_all = flagged_pairs
-        if len(hu_all) == 0:
+        bin/ntsynt_synteny.py:346-358; its scale never hurt). The walk's
+        positions are node-column gathers, counted in
+        synteny.gathered<suffix>."""
+        iu_all, iv_all = flagged_pairs
+        if len(iu_all) == 0:
             return
-        iu = self.graph.node_index(np.asarray(hu_all, dtype=np.uint64))
-        iv = self.graph.node_index(np.asarray(hv_all, dtype=np.uint64))
         deg = self.graph.degree()
-        ok = (iu >= 0) & (iv >= 0)
-        ok &= deg[np.maximum(iu, 0)] == 1
-        ok &= deg[np.maximum(iv, 0)] == 1
+        ok = (deg[iu_all] == 1) & (deg[iv_all] == 1)
         if not ok.any():
             return
         indptr, eids, other = self.graph.incident_csr()
         to_remove = []
+        gathered = 0
         for j in np.where(ok)[0]:
-            hu, hv = int(hu_all[j]), int(hv_all[j])
-            ju, jv = int(iu[j]), int(iv[j])
+            ju, jv = int(iu_all[j]), int(iv_all[j])
             # normalize by hash STRING comparison for determinism (:350-352)
-            if str(hu) > str(hv):
+            if str(int(self.graph.node_hash[ju])) > str(int(self.graph.node_hash[jv])):
                 ju, jv = jv, ju
-            to_remove.extend(self._erode_edges(ju, jv, indptr, eids, other))
+            edges, n = self._erode_edges(ju, jv, indptr, eids, other)
+            to_remove.extend(edges)
+            gathered += n
+        self.timer.count(f"synteny.gathered{suffix}", gathered)
         if to_remove:
             self.graph = self.graph.delete_edges(set(to_remove))
 
@@ -328,7 +296,14 @@ class SyntenyDetector:
     # refinement rounds
     # ------------------------------------------------------------------
     def generate_additional_minimizers(self, blocks, new_w: int, prev_w: int):
-        """generate_additional_minimizers (bin/ntsynt_synteny.py:532-541)."""
+        """generate_additional_minimizers (bin/ntsynt_synteny.py:532-541).
+
+        Returns (segments key -> list of uint64 arrays, columns key ->
+        (ctg, pos) aligned with concat(segments[key]), terminal): the
+        round's graph takes the columns as update_list_mx_info's merge
+        (bin/ntsynt_synteny.py:282-290), so no assembly's index is
+        rebuilt; the columns are the one hash join left, counted in
+        synteny.hash_joined:w<w>."""
         p = self.params
         n_asm = len(self.files)
         mask_ivs = rf.synteny_mask_intervals(blocks, n_asm, prev_w, p.k)
@@ -405,32 +380,39 @@ class SyntenyDetector:
 
         segments_per_asm = filter_segments_common(segments_per_asm)
 
-        # update_list_mx_info (:282-290): merge kept new mx into mx_info
+        # the kept minimizers' (contig, position), for update_list_mx_info
+        # (:282-290) on the round's graph
+        columns = {}
+        joined = 0
         for key in self.files:
-            kept = (
-                np.unique(np.concatenate(segments_per_asm[key]))
-                if segments_per_asm[key]
-                else np.zeros(0, np.uint64)
-            )
-            self.timer.count(f"synteny.new_mx:w{new_w}:{key}", len(kept))
-            if len(kept):
-                ctg, pos_arr = new_info[key].lookup(kept)
-                self.assemblies[key].mx_info = self.assemblies[key].mx_info.update(
-                    kept, ctg, pos_arr
-                )
-        return segments_per_asm, terminal
+            segs = segments_per_asm[key]
+            flat = np.concatenate(segs) if segs else np.zeros(0, np.uint64)
+            self.timer.count(f"synteny.new_mx:w{new_w}:{key}", len(np.unique(flat)))
+            columns[key] = new_info[key].lookup(flat)
+            joined += len(flat)
+        self.timer.count(f"synteny.hash_joined:w{new_w}", joined)
+        return segments_per_asm, columns, terminal
 
     def extract_blocks(self, suffix: str = ""):
         """Linear paths -> blocks -> indel and >=4-mx passes over the
         current graph, each a synteny.* span (``suffix``: the refinement
-        round's ":w<w>")."""
+        round's ":w<w>").
+
+        The graph loses the vote failures' nodes (find_paths_synteny_blocks),
+        the indel breaks' edges (check_for_indels, bin/ntsynt_synteny.py
+        :391-409) and the short blocks' nodes (filter_synteny_blocks,
+        :411-426) once, at the end: deleting nodes and edges commute,
+        and until then every node id is the paths' own."""
         with self.timer.stage(f"synteny.paths{suffix}"):
-            paths = self.graph.linear_paths()
+            paths = self.graph.linear_path_ids()
         with self.timer.stage(f"synteny.blocks{suffix}"):
-            blocks = self.paths_to_blocks(paths)
+            blocks, failed = self.paths_to_blocks(paths, suffix)
         with self.timer.stage(f"synteny.indel_minmx{suffix}"):
-            blocks = self.indel_pass(blocks)
-            blocks = self.min_mx_pass(blocks, 4)
+            blocks, broken = blk.check_for_indels(blocks, self.params.bp)
+            blocks, short = blk.filter_blocks_min_mx(blocks, 4)
+            self.graph = self.graph.delete_edges(
+                self.graph.edge_ids(*broken)
+            ).delete_nodes(np.concatenate([failed, short]))
         self.timer.count(f"synteny.paths{suffix}", len(paths))
         self.timer.count(f"synteny.blocks{suffix}", len(blocks))
         return blocks
@@ -444,13 +426,14 @@ class SyntenyDetector:
             log(f"Extending synteny blocks with w = {new_w}")
             rnd = f":w{new_w}"
             with self.timer.stage(f"synteny.new_mx{rnd}"):
-                segments, terminal = self.generate_additional_minimizers(
+                segments, columns, terminal = self.generate_additional_minimizers(
                     blocks, new_w, prev_w
                 )
             adj = [(k, segments[k]) for k in self.files]
             with self.timer.stage(f"synteny.graph{rnd}"):
                 graph = MinimizerGraph.build(
-                    adj, self.weights, seed=self.graph, black_list=terminal
+                    adj, self.weights, seed=self.graph, black_list=terminal,
+                    columns=[columns[k] for k in self.files],
                 )
             self._count_graph(graph, rnd)
             # NOTE: the reference nominally re-simplifies here, but its
@@ -462,7 +445,7 @@ class SyntenyDetector:
                 if new_w == p.w_rounds[-1]:
                     log("Filtering the graph")
                     self.graph, pairs = graph.filter_global(p.n, flag=True)
-                    self.refine_graph_erosion(pairs)
+                    self.refine_graph_erosion(pairs, rnd)
                 else:
                     self.graph = graph.filter_global(p.n)
             blocks = self.extract_blocks(rnd)
@@ -556,6 +539,10 @@ class SyntenyDetector:
         if len(p.w_rounds) != len(set(p.w_rounds)):
             raise ValueError("duplicate values found in w_rounds!")
 
+        for a in self.assemblies.values():
+            # nothing here reads an assembly's index: the graph's node
+            # columns take its place, and can reuse its memory
+            a.mx_info = None
         with self.timer.stage("synteny.filter_common"):
             filter_common(self.assemblies)
         for key in self.files:

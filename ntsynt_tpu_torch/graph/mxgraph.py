@@ -19,7 +19,10 @@ exactly the operations ntSynt uses, on flat NumPy arrays:
   * linear-path extraction (ntjoin_find_paths contract): maximal chains
     walked from degree-1 endpoints.
 
-Nodes are identified by their uint64 minimizer hash. Edge order is kept
+Vertices are named by their uint64 minimizer hash; the operations above
+address them by node id (their index), and each node carries its
+minimizer's contig and position in every assembly (node_ctg, node_pos),
+so synteny gathers by id where igraph would look names up. Edge order is kept
 in first-insertion order (matching igraph's insertion-ordered edge list)
 because graph simplification mutates weights while scanning edges in
 that order.
@@ -62,10 +65,19 @@ class MinimizerGraph:
     eu: np.ndarray  # int32 [m]
     ev: np.ndarray  # int32 [m]
     weight: np.ndarray  # int32 [m]
+    # per-assembly node columns, one row per assembly in the build's
+    # adjacency order: the contig index and position of the node's
+    # minimizer in that assembly (build's ``columns``); no rows when
+    # built without columns
+    node_ctg: np.ndarray | None = None  # int32 [n_asm, n]
+    node_pos: np.ndarray | None = None  # int64 [n_asm, n]
     # caches
-    _sorted_hash: np.ndarray | None = field(default=None, repr=False)
-    _sorted_perm: np.ndarray | None = field(default=None, repr=False)
     _degree: np.ndarray | None = field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.node_ctg is None:
+            self.node_ctg = np.zeros((0, len(self.node_hash)), np.int32)
+            self.node_pos = np.zeros((0, len(self.node_hash)), np.int64)
 
     # ------------------------------------------------------------------
     @property
@@ -75,22 +87,6 @@ class MinimizerGraph:
     @property
     def n_edges(self) -> int:
         return len(self.eu)
-
-    def _ensure_lookup(self):
-        if self._sorted_hash is None:
-            self._sorted_perm = np.argsort(self.node_hash, kind="stable")
-            self._sorted_hash = self.node_hash[self._sorted_perm]
-
-    def node_index(self, hashes) -> np.ndarray:
-        """Vectorized hash -> node index (-1 if absent)."""
-        hashes = np.asarray(hashes, dtype=np.uint64)
-        if self.n_nodes == 0:
-            return np.full(len(hashes), -1, dtype=np.int64)
-        self._ensure_lookup()
-        loc = np.searchsorted(self._sorted_hash, hashes)
-        loc = np.minimum(loc, len(self._sorted_hash) - 1)
-        found = self._sorted_hash[loc] == hashes
-        return np.where(found, self._sorted_perm[loc], -1).astype(np.int64)
 
     def degree(self) -> np.ndarray:
         if self._degree is None:
@@ -115,6 +111,7 @@ class MinimizerGraph:
         weights,
         seed: "MinimizerGraph | None" = None,
         black_list=None,
+        columns=None,
     ) -> "MinimizerGraph":
         """Build/extend the graph from per-assembly adjacency.
 
@@ -133,6 +130,14 @@ class MinimizerGraph:
             new interior evidence — and a block's own terminals (made
             adjacent in refinement lists because interior minimizers are
             filtered out) don't get a spurious chord.
+          columns: None, or one (ctg int32 [t], pos int64 [t]) pair per
+            assembly, aligned with adjacency_lists, each aligned with the
+            concatenation of that assembly's lists (a hash occurs at most
+            once in an assembly's lists). They fill the node columns: a
+            node keeps the seed's columns unless an assembly's lists hold
+            its hash, whose values then win (update_list_mx_info,
+            bin/ntsynt_synteny.py:282-290). A seed with columns needs
+            columns for the same assemblies.
         """
         # ---- nodes: first-appearance order over [seed nodes] + lists --
         hash_parts = [seed.node_hash] if seed is not None else []
@@ -180,6 +185,17 @@ class MinimizerGraph:
         # (optional) seed prefix inside all_hashes/ids
         id_base = len(hash_parts[0]) if hash_parts else 0
 
+        # ---- node columns: the seed's, then each list occurrence's ----
+        n_rows = len(columns) if columns is not None else 0
+        if seed is not None and len(seed.node_ctg) != n_rows:
+            raise ValueError("seed graph and columns cover different assemblies")
+        node_ctg = np.full((n_rows, len(node_hash)), -1, np.int32)
+        node_pos = np.full((n_rows, len(node_hash)), -1, np.int64)
+        if seed is not None and n_rows:
+            # the seed's nodes come first, so they keep their ids
+            node_ctg[:, :id_base] = seed.node_ctg
+            node_pos[:, :id_base] = seed.node_pos
+
         # ---- adjacency pair occurrences, in insertion order ----------
         occ_u, occ_v, occ_w = [], [], []
         if seed is not None and seed.n_edges:
@@ -205,17 +221,19 @@ class MinimizerGraph:
         # with node ids sliced straight out of `ids` (no re-joins)
         pos = 0
         base = id_base
-        for asm_key, mx_lists in adjacency_lists:
+        for ai, (asm_key, mx_lists) in enumerate(adjacency_lists):
             wt = weights[asm_key]
             arrs = list_cat[pos : pos + len(mx_lists)]
             pos += len(mx_lists)
             lens = np.asarray([len(a) for a in arrs], dtype=np.int64)
             total = int(lens.sum())
-            if total < 2:
-                base += total
-                continue
             idx_all = ids[base : base + total]
             base += total
+            if n_rows:
+                node_ctg[ai, idx_all] = columns[ai][0]
+                node_pos[ai, idx_all] = columns[ai][1]
+            if total < 2:
+                continue
             lid = np.repeat(np.arange(len(arrs), dtype=np.int32), lens)
             adj = lid[1:] == lid[:-1]  # pair (i, i+1) within one list
             del lid
@@ -229,7 +247,8 @@ class MinimizerGraph:
             del adj
 
         if not occ_u:
-            return cls(node_hash, *(np.zeros(0, np.int32) for _ in range(3)))
+            return cls(node_hash, *(np.zeros(0, np.int32) for _ in range(3)),
+                       node_ctg, node_pos)
         u = np.concatenate(occ_u)
         occ_u.clear()
         v = np.concatenate(occ_v)
@@ -261,28 +280,34 @@ class MinimizerGraph:
         eu = u[kfirst][worder]
         ev = v[kfirst][worder]
         ew = wsum[worder]
-        return cls(node_hash, eu, ev, ew)
+        return cls(node_hash, eu, ev, ew, node_ctg, node_pos)
 
     # ------------------------------------------------------------------
     # mutation (functional: return new graph)
     # ------------------------------------------------------------------
+    def _with_edges(self, keep) -> "MinimizerGraph":
+        """The same nodes with the edges where ``keep`` is set."""
+        return MinimizerGraph(
+            self.node_hash, self.eu[keep], self.ev[keep], self.weight[keep],
+            self.node_ctg, self.node_pos,
+        )
+
     def delete_edges(self, edge_ids) -> "MinimizerGraph":
-        edge_ids = list(edge_ids)
-        if not edge_ids:
+        edge_ids = np.asarray(list(edge_ids), dtype=np.int64)
+        if not len(edge_ids):
             return self
         keep = np.ones(self.n_edges, dtype=bool)
-        keep[np.asarray(edge_ids, dtype=np.int64)] = False
-        return MinimizerGraph(self.node_hash, self.eu[keep], self.ev[keep], self.weight[keep])
+        keep[edge_ids] = False
+        return self._with_edges(keep)
 
-    def delete_nodes_by_hash(self, hashes) -> "MinimizerGraph":
-        """Remove nodes (and incident edges) by minimizer hash."""
-        hashes = np.asarray(list(hashes), dtype=np.uint64)
-        if len(hashes) == 0:
+    def delete_nodes(self, node_ids) -> "MinimizerGraph":
+        """Remove nodes (and incident edges) by node id; the survivors
+        keep their order, columns and edges' order."""
+        node_ids = np.asarray(node_ids, dtype=np.int64)
+        if not len(node_ids):
             return self
-        doomed_idx = self.node_index(hashes)
-        doomed = np.zeros(self.n_nodes, dtype=bool)
-        doomed[doomed_idx[doomed_idx >= 0]] = True
-        keep_nodes = ~doomed
+        keep_nodes = np.ones(self.n_nodes, dtype=bool)
+        keep_nodes[node_ids] = False
         remap = np.cumsum(keep_nodes, dtype=np.int32)
         remap -= 1
         keep_edges = keep_nodes[self.eu] & keep_nodes[self.ev]
@@ -291,25 +316,27 @@ class MinimizerGraph:
             remap[self.eu[keep_edges]],
             remap[self.ev[keep_edges]],
             self.weight[keep_edges],
+            self.node_ctg[:, keep_nodes],
+            self.node_pos[:, keep_nodes],
         )
 
     def filter_global(self, min_weight: int, flag: bool = False):
         """Drop edges with weight < min_weight.
 
-        With flag=True also return the (u_hashes, v_hashes) uint64
-        endpoint arrays of removed edges in edge order
-        (filter_graph_global_flag_overlaps, bin/ntsynt_synteny.py:292-303).
+        With flag=True also return the (u, v) node-id arrays of removed
+        edges in edge order (filter_graph_global_flag_overlaps,
+        bin/ntsynt_synteny.py:292-303); the nodes keep their ids.
         Arrays, not Python tuples: the last refinement round can drop
         millions of edges at gigabase scale, and the erosion pre-filter
         (core/synteny.refine_graph_erosion) reduces them with vectorized
         degree masks before any Python-level loop.
         """
         keep = self.weight >= min_weight
-        g = MinimizerGraph(self.node_hash, self.eu[keep], self.ev[keep], self.weight[keep])
+        g = self._with_edges(keep)
         if not flag:
             return g
         dropped = ~keep
-        return g, (self.node_hash[self.eu[dropped]], self.node_hash[self.ev[dropped]])
+        return g, (self.eu[dropped], self.ev[dropped])
 
     # ------------------------------------------------------------------
     # queries
@@ -327,15 +354,23 @@ class MinimizerGraph:
         np.cumsum(indptr, out=indptr)
         return indptr, eid, other
 
-    def edge_id(self, hu, hv) -> int:
-        """Edge id between two node hashes (ntjoin_utils.edge_index)."""
-        iu, iv = self.node_index(np.array([hu, hv], dtype=np.uint64))
-        hits = np.where(
-            ((self.eu == iu) & (self.ev == iv)) | ((self.eu == iv) & (self.ev == iu))
-        )[0]
-        if len(hits) == 0:
-            raise KeyError(f"no edge between {hu} and {hv}")
-        return int(hits[0])
+    def edge_ids(self, iu, iv) -> np.ndarray:
+        """Ids of the edges joining the node pairs (iu[j], iv[j]), either
+        orientation (ntjoin_utils.edge_index, vectorized: one pass over
+        the edges, none over the nodes); KeyError if a pair has none."""
+        n = np.int64(self.n_nodes)
+        iu = np.asarray(iu, np.int64)
+        iv = np.asarray(iv, np.int64)
+        if not len(iu):
+            return np.zeros(0, np.int64)
+        want = np.unique(np.minimum(iu, iv) * n + np.maximum(iu, iv))
+        key = np.minimum(self.eu, self.ev).astype(np.int64) * n
+        key += np.maximum(self.eu, self.ev)
+        loc = np.minimum(np.searchsorted(want, key), len(want) - 1)
+        hits = np.flatnonzero(want[loc] == key)
+        if len(hits) != len(want):
+            raise KeyError("a node pair has no edge")
+        return hits
 
     # ------------------------------------------------------------------
     # simplification (bubbles)
@@ -381,19 +416,24 @@ class MinimizerGraph:
                 to_remove_nodes.append(int(common[0]))
                 weight[e] = max_edge_weight
 
-        g = MinimizerGraph(self.node_hash, self.eu, self.ev, weight)
-        if to_remove_nodes:
-            g = g.delete_nodes_by_hash(self.node_hash[np.asarray(to_remove_nodes, np.int64)])
-        return g
+        g = MinimizerGraph(
+            self.node_hash, self.eu, self.ev, weight, self.node_ctg, self.node_pos
+        )
+        return g.delete_nodes(to_remove_nodes)
 
     # ------------------------------------------------------------------
     # path extraction
     # ------------------------------------------------------------------
     def linear_paths(self):
+        """The ordered minimizer hashes of each of linear_path_ids()'s
+        paths."""
+        return [self.node_hash[p] for p in self.linear_path_ids()]
+
+    def linear_path_ids(self):
         """Extract maximal simple chains (ntjoin_find_paths contract).
 
-        Returns a list of uint64 arrays — each the ordered minimizer
-        hashes of one maximal path walked between degree-1 endpoints.
+        Returns a list of integer arrays — each the ordered node ids of
+        one maximal path walked between degree-1 endpoints.
         Each undirected chain is returned ONCE, in an arbitrary of its
         two directions (the caller normalizes direction against the
         representative assembly). Chains that run into a node of degree
@@ -464,7 +504,7 @@ class MinimizerGraph:
             )
             if n_chains >= 0:
                 return [
-                    self.node_hash[out_nodes[out_offsets[i] : out_offsets[i + 1]]]
+                    out_nodes[out_offsets[i] : out_offsets[i + 1]]
                     for i in range(n_chains)
                 ]
             # corrupt/overflow (cannot happen for well-formed graphs):
@@ -527,6 +567,6 @@ class MinimizerGraph:
         out[offsets + L_edges] = dv[end[starts]]
 
         return [
-            self.node_hash[out[offsets[i] : offsets[i] + int(n_nodes_out[i])]]
+            out[offsets[i] : offsets[i] + int(n_nodes_out[i])]
             for i in range(len(starts))
         ]

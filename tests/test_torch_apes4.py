@@ -38,12 +38,6 @@ SITE = {
             return "\\n".join(rows)
         blocks.BlockSet.block_rows = block_rows
     """,
-    # every lookup through the batched branch, whose joins are spans: at
-    # this size no lookup reaches synteny.BATCH_LOOKUP queries
-    "batched_lookups": """
-        from ntsynt_tpu_torch.core import synteny
-        synteny.BATCH_LOOKUP = 1
-    """,
 }
 
 
@@ -117,7 +111,7 @@ def test_wrong_strand_caught(tmp_path, monkeypatch, capsys):
 
 
 def test_traced_run_has_level_and_join_spans(tmp_path, monkeypatch, capsys):
-    line, jobs, _ = _run(tmp_path, monkeypatch, capsys, site="batched_lookups", trace=True)
+    line, jobs, _ = _run(tmp_path, monkeypatch, capsys, trace=True)
     assert line["correct"], line["checks"]
     stages = jobs[0]["stages"]
     assert sorted(n for n in stages if n.startswith("bf.level:")) == [

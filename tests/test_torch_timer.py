@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 
 from ntsynt_tpu_torch.cli import main as torch_main
-from ntsynt_tpu_torch.core import synteny
 from ntsynt_tpu_torch.io import fasta as fio
 from ntsynt_tpu_torch.utils import StageTimer
 
@@ -242,11 +241,19 @@ def test_counters_tsv_only_with_benchmark(tmp_path, monkeypatch, benchmark):
     want = {f"synteny.common_mx:{g}" for g in ("ta.fa", "tb.fa")}
     want |= {f"synteny.{n}{r}" for n in ("nodes", "edges", "paths", "blocks") for r in rounds}
     want |= {f"synteny.new_mx:{r[1:]}:{g}" for r in rounds[1:] for g in ("ta.fa", "tb.fa")}
+    want |= {f"synteny.gathered{r}" for r in rounds}
+    want |= {f"synteny.hash_joined{r}" for r in rounds[1:]}
     assert set(got) == want
     assert all(v > 0 for v in got.values()), got
     # a path holds at least two nodes; a path gives at most one block
     assert got["synteny.nodes"] >= 2 * got["synteny.paths"]
     assert got["synteny.paths"] >= got["synteny.blocks"]
+    # a pass gathers its paths' nodes, each once; the one hash join left
+    # is each round's new minimizers
+    assert 2 * got["synteny.paths"] <= got["synteny.gathered"] <= got["synteny.nodes"]
+    for r in rounds[1:]:
+        assert got[f"synteny.hash_joined{r}"] == sum(
+            got[f"synteny.new_mx:{r[1:]}:{g}"] for g in ("ta.fa", "tb.fa"))
     # the common filter keeps the same minimizers in both assemblies
     assert got["synteny.common_mx:ta.fa"] == got["synteny.common_mx:tb.fa"]
     blocks = (tmp_path / "t.synteny_blocks.tsv").read_text().splitlines()
@@ -264,7 +271,6 @@ def test_cli_spans_through_the_benchmark_wrapper(tmp_path, monkeypatch):
         return real_read(*args, **kw)
 
     monkeypatch.setattr(fio, "read_fasta", slow_read)
-    monkeypatch.setattr(synteny, "BATCH_LOOKUP", 1)  # every lookup a batch join
     monkeypatch.setattr(StageTimer, "stage", StageTimer.stage)  # restored after the test
     seen = []
     _record_stages(seen)
