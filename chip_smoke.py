@@ -1186,7 +1186,9 @@ def walk_alone(n_nodes: int) -> dict:
 
     rng = np.random.default_rng(SEED + 3)
     chain = rng.permutation(np.arange(1, n_nodes + 1, dtype=np.uint64))
-    g = MinimizerGraph.build([("a", [chain]), ("b", [chain])], {"a": 1, "b": 1})
+    run = np.zeros(n_nodes, np.int32)
+    pos = np.arange(n_nodes, dtype=np.int64)
+    g = MinimizerGraph.build([(chain, run, pos, run)] * 2)
     out, paths = {}, {}
     for label, value in (("native", None), ("numpy", "1")):
         with env_set("NTSYNT_NO_NATIVE_WALK", value):

@@ -439,17 +439,19 @@ class NtSyntPipeline:
                     sk = _collect(handle)
                     if cfg.write_artifacts:
                         # the per-minimizer k-mer strings and the file
-                        # write run on a background thread
+                        # write run on a background thread, one contig's
+                        # strings at a time: a whole genome's (about 90 B
+                        # a minimizer) would be held beside host synteny's
+                        # first graph
                         def _write_tsv(sk=sk, g=genomes[name], tsv_path=tsv_path):
-                            with self.timer.stage(f"write.sketch_tsv:{g.name}"):
-                                recs = []
+                            def recs():
                                 for ci, cname in enumerate(sk.contig_names):
                                     mask = sk.contig_idx == ci
-                                    seqs = g.kmer_strings(ci, sk.positions[mask], cfg.k)
-                                    recs.append(
-                                        (cname, sk.hashes[mask], sk.positions[mask], seqs)
-                                    )
-                                sketch_tsv.write_sketch_tsv(tsv_path, recs)
+                                    pos = sk.positions[mask]
+                                    yield cname, sk.hashes[mask], pos, g.kmer_strings(ci, pos, cfg.k)
+
+                            with self.timer.stage(f"write.sketch_tsv:{g.name}"):
+                                sketch_tsv.write_sketch_tsv(tsv_path, recs())
 
                         t = threading.Thread(target=_write_tsv, name=f"write.sketch_tsv:{name}")
                         t.start()
@@ -458,7 +460,7 @@ class NtSyntPipeline:
                     assemblies[name] = AssemblyMinimizers.from_sketch(
                         sk, genome=genomes[name], repeat_canon_filter=rep_filter
                     )
-            log(f"{name}: {len(assemblies[name].mx_info.sorted_hash)} minimizers kept")
+            log(f"{name}: {len(assemblies[name].hashes)} minimizers kept")
         streams.clear()
 
         # deferred full .bf saves overlap the (host) synteny stage

@@ -196,53 +196,47 @@ def condensed_genome(genome, mask_by_ctg, w: int, k: int):
     )
 
 
-def filter_new_minimizer_lists(per_ctg_lists, black_list, intervals_for_asm, contig_of_list):
+def filter_new_minimizer_lists(hashes, ctg, pos, black_list, intervals_for_asm):
     """filter_minimizers_synteny_blocks for one assembly
     (bin/ntsynt_synteny.py:256-280).
 
-    Walks each new per-contig minimizer list (hashes + positions),
-    dropping minimizers that are in the black list (existing internal
-    minimizers) or positioned inside an existing block interior, and
-    splitting a list whenever the segment between the previous kept
-    minimizer and the current one overlaps a block interior.
+    Walks the round's new minimizers contig by contig, dropping those
+    that are in the black list (existing internal minimizers) or
+    positioned inside an existing block interior, and splitting a
+    contig's minimizers into segments whenever the stretch between the
+    previous kept minimizer and the current one overlaps a block
+    interior.
 
     Args:
-      per_ctg_lists: list of (hashes u64[m], pos int64[m]) per contig.
+      hashes, ctg, pos: the round's table (uint64, int32, int64 [m]),
+        in (contig, position) order.
       black_list: sorted uint64 array of internal minimizers.
       intervals_for_asm: dict ctg_idx -> IntervalIndex.
-      contig_of_list: contig index per input list.
 
-    Returns list of uint64 segment arrays (order preserved).
+    Returns (keep bool [m], segment id int64 [kept]): the rows kept and,
+    for each, its segment, the ids ascending in table order.
     """
-    segments = []
-    for (hashes, pos), ctg_idx in zip(per_ctg_lists, contig_of_list):
-        iv = intervals_for_asm.get(int(ctg_idx))
-        if len(black_list):
-            loc = np.searchsorted(black_list, hashes)
-            loc = np.minimum(loc, len(black_list) - 1)
-            in_black = black_list[loc] == hashes
-        else:
-            in_black = np.zeros(len(hashes), dtype=bool)
-        if iv is not None:
-            in_block = iv.has_overlap_vec(pos, pos + 1)
-        else:
-            in_block = np.zeros(len(hashes), dtype=bool)
-
-        keep = ~in_black & ~in_block
-        kept_h = hashes[keep]
-        kept_p = pos[keep]
-        if iv is None or len(kept_h) < 2:
-            segments.append(kept_h.astype(np.uint64))
-            continue
-        # Positions within a contig list are ascending, so the reference's
-        # per-minimizer walk (which checks every minimizer — kept or
-        # dropped — against the last KEPT one and splits on the first
-        # overlap) reduces to: split between consecutive kept minimizers
-        # (A, B) iff [A.pos, B.pos) overlaps a block interior. Any
-        # triggering sub-interval [A.pos, M.pos) is contained in it, so
-        # the outcomes coincide exactly.
-        split_after = iv.has_overlap_vec(kept_p[:-1], kept_p[1:])
-        bounds = np.where(split_after)[0] + 1
-        for seg in np.split(kept_h, bounds):
-            segments.append(seg.astype(np.uint64))
-    return segments
+    if len(black_list):
+        loc = np.searchsorted(black_list, hashes)
+        loc = np.minimum(loc, len(black_list) - 1)
+        keep = black_list[loc] != hashes
+    else:
+        keep = np.ones(len(hashes), dtype=bool)
+    for c, iv in intervals_for_asm.items():
+        lo, hi = np.searchsorted(ctg, [c, c + 1])
+        keep[lo:hi] &= ~iv.has_overlap_vec(pos[lo:hi], pos[lo:hi] + 1)
+    kept_c, kept_p = ctg[keep], pos[keep]
+    new_seg = np.ones(len(kept_c), dtype=bool)
+    np.not_equal(kept_c[1:], kept_c[:-1], out=new_seg[1:])
+    # Positions within a contig are ascending, so the reference's
+    # per-minimizer walk (which checks every minimizer — kept or
+    # dropped — against the last KEPT one and splits on the first
+    # overlap) reduces to: split between consecutive kept minimizers
+    # (A, B) iff [A.pos, B.pos) overlaps a block interior. Any
+    # triggering sub-interval [A.pos, M.pos) is contained in it, so
+    # the outcomes coincide exactly.
+    for c, iv in intervals_for_asm.items():
+        lo, hi = np.searchsorted(kept_c, [c, c + 1])
+        if hi - lo >= 2:
+            new_seg[lo + 1 : hi] |= iv.has_overlap_vec(kept_p[lo : hi - 1], kept_p[lo + 1 : hi])
+    return keep, np.cumsum(new_seg, dtype=np.int64)

@@ -29,7 +29,7 @@ from ..ops import sketch as sketch_ops
 from ..utils import StageTimer, log
 from . import blocks as blk
 from . import refine as rf
-from .assembly import AssemblyMinimizers, filter_common, filter_segments_common
+from .assembly import AssemblyMinimizers, filter_common
 
 
 @dataclass
@@ -99,8 +99,8 @@ class SyntenyDetector:
         self.timer = params.timer or StageTimer()
         if params.n == 0:
             params.n = len(self.files)
-        self.weights = {k: 1 for k in self.files}  # (:32)
-        self.max_edge_weight = sum(self.weights.values())
+        # every assembly adds 1 to an edge's weight (:32)
+        self.max_edge_weight = len(self.files)
         self.collinear_merge_bp = params.resolve_collinear_merge()
         self.rep = self.files[-1]  # lexicographically smallest assembly
         self.graph = MinimizerGraph.empty()
@@ -115,12 +115,12 @@ class SyntenyDetector:
     # ------------------------------------------------------------------
     def _gather(self, ids, suffix: str = ""):
         """(hashes [L], ctg [n_asm, L], pos [n_asm, L]) of graph nodes by
-        id, assemblies in FILES order: what each assembly's mx_info,
-        merged with every round's kept minimizers, would answer for the
-        nodes' hashes, read from the node columns. A
-        synteny.lookup span, each assembly's gather a synteny.join:<a>
-        span inside it; the synteny.gathered<suffix> counter counts the
-        nodes."""
+        id, assemblies in FILES order, read from the node columns: each
+        node's minimizer in each assembly's table, or in the latest
+        round's table that kept it (the reference's hash index with each
+        round's merge, bin/ntsynt_synteny.py:282-290). A synteny.lookup
+        span, each assembly's gather a synteny.join:<a> span inside it;
+        the synteny.gathered<suffix> counter counts the nodes."""
         g = self.graph
         ctg = np.empty((len(self.files), len(ids)), np.int32)
         pos = np.empty((len(self.files), len(ids)), np.int64)
@@ -137,16 +137,16 @@ class SyntenyDetector:
     # stages
     # ------------------------------------------------------------------
     def make_minimizer_graph(self):
-        """The first graph, its nodes' columns from the assemblies'
-        lists, which are then released."""
+        """The first graph, from the assemblies' tables: a contig is a
+        run of adjacent minimizers. The graph's nodes and columns then
+        hold every table's rows, so the tables are dropped: nothing reads
+        them again, and their memory (20 B a minimizer) would otherwise
+        stay held to the end of synteny."""
         log("Building the minimizer graph")
-        asms = [self.assemblies[k] for k in self.files]
-        self.graph = MinimizerGraph.build(
-            [(a.key, a.lists) for a in asms], self.weights,
-            columns=[a.columns() for a in asms],
-        )
+        asms = list(self.assemblies.values())
+        self.graph = MinimizerGraph.build([(a.hashes, a.ctg, a.pos, a.ctg) for a in asms])
         for a in asms:
-            a.release()
+            a.hashes = a.ctg = a.pos = None
         self._count_graph(self.graph)
 
     def _count_graph(self, graph, suffix: str = ""):
@@ -213,8 +213,9 @@ class SyntenyDetector:
         """erode_edges (bin/ntsynt_synteny.py:312-340): walk inward from a
         sub-threshold edge's endpoints while the two frontier minimizers
         physically overlap (< k apart in any assembly), alternating
-        sides, collecting incident edges to remove. Returns the edges and
-        the node positions gathered."""
+        sides, collecting incident edges to remove. Returns the edge-id
+        arrays collected (an edge may repeat) and the node positions
+        gathered."""
         g = self.graph
         k = self.params.k
         pos = g.node_pos
@@ -227,13 +228,13 @@ class SyntenyDetector:
 
         erode_target = True
         cur_s, cur_t = src_idx, tgt_idx
-        return_edges = set()
+        return_edges = []
         visited = {cur_s, cur_t}
         while overlaps(cur_s, cur_t):
             v = cur_t if erode_target else cur_s
             ids_v = eids[indptr[v] : indptr[v + 1]]
             nb_v = other[indptr[v] : indptr[v + 1]]
-            return_edges.update(int(e) for e in ids_v)
+            return_edges.append(ids_v)
             candidates = [int(n) for n in nb_v if int(n) not in visited]
             if not candidates:
                 break
@@ -286,11 +287,11 @@ class SyntenyDetector:
             if str(int(self.graph.node_hash[ju])) > str(int(self.graph.node_hash[jv])):
                 ju, jv = jv, ju
             edges, n = self._erode_edges(ju, jv, indptr, eids, other)
-            to_remove.extend(edges)
+            to_remove += edges
             gathered += n
         self.timer.count(f"synteny.gathered{suffix}", gathered)
         if to_remove:
-            self.graph = self.graph.delete_edges(set(to_remove))
+            self.graph = self.graph.delete_edges(np.concatenate(to_remove))
 
     # ------------------------------------------------------------------
     # refinement rounds
@@ -298,19 +299,17 @@ class SyntenyDetector:
     def generate_additional_minimizers(self, blocks, new_w: int, prev_w: int):
         """generate_additional_minimizers (bin/ntsynt_synteny.py:532-541).
 
-        Returns (segments key -> list of uint64 arrays, columns key ->
-        (ctg, pos) aligned with concat(segments[key]), terminal): the
-        round's graph takes the columns as update_list_mx_info's merge
-        (bin/ntsynt_synteny.py:282-290), so no assembly's index is
-        rebuilt; the columns are the one hash join left, counted in
-        synteny.hash_joined:w<w>."""
+        Returns (tables, terminal): one (hashes, ctg, pos, segment) table
+        of the round's kept minimizers per assembly in FILES order, each
+        hash once, for the round's graph, whose node columns take their
+        (contig, position) as the reference merges them into its hash
+        index (bin/ntsynt_synteny.py:282-290)."""
         p = self.params
         n_asm = len(self.files)
         mask_ivs = rf.synteny_mask_intervals(blocks, n_asm, prev_w, p.k)
         terminal, internal, intervals = rf.find_mx_in_blocks(blocks, self.files)
 
-        segments_per_asm = {}
-        new_info = {}
+        tables = []
         for a, key in enumerate(self.files):
             asm = self.assemblies[key]
             if asm.genome is None:
@@ -348,50 +347,28 @@ class SyntenyDetector:
             with self.timer.stage(f"synteny.filter_mx:w{new_w}"):
                 # remap synthetic segments -> original (contig, position);
                 # read_minimizers semantics: drop within-assembly duplicates
-                tmp = AssemblyMinimizers.from_arrays(
+                new = AssemblyMinimizers.from_arrays(
                     asm.key,
                     asm.contig_names,
                     sk.hashes,
                     seg_ctg[sk.contig_idx],
                     sk.positions + seg_off[sk.contig_idx],
-                    genome=asm.genome,
                 )
-                per_ctg = []
-                ctg_of_list = []
-                for ci in range(len(tmp.contig_names)):
-                    h = tmp.lists[ci]
-                    if len(h) == 0:
-                        continue
-                    # positions come straight from the construction layout
-                    # (pos_lists is split alongside lists) — the previous
-                    # per-contig mx_info.lookup was 10^3+ binary-search
-                    # batches per assembly per round on real assemblies
-                    per_ctg.append((h, tmp.pos_lists[ci]))
-                    ctg_of_list.append(ci)
                 asm_intervals = {
                     c: iv for (ai, c), iv in intervals.items() if ai == a
                 }
-                segments_per_asm[key] = rf.filter_new_minimizer_lists(
-                    per_ctg, internal, asm_intervals, ctg_of_list
+                keep, seg = rf.filter_new_minimizer_lists(
+                    new.hashes, new.ctg, new.pos, internal, asm_intervals
                 )
-                new_info[key] = tmp.mx_info
+                tables.append((new.hashes[keep], new.ctg[keep], new.pos[keep], seg))
             log(f"  {key}: {cond.total_bases} b condensed, {sk.n_minimizers} new mx",
                 dev_only=True)
 
-        segments_per_asm = filter_segments_common(segments_per_asm)
-
-        # the kept minimizers' (contig, position), for update_list_mx_info
-        # (:282-290) on the round's graph
-        columns = {}
-        joined = 0
-        for key in self.files:
-            segs = segments_per_asm[key]
-            flat = np.concatenate(segs) if segs else np.zeros(0, np.uint64)
-            self.timer.count(f"synteny.new_mx:w{new_w}:{key}", len(np.unique(flat)))
-            columns[key] = new_info[key].lookup(flat)
-            joined += len(flat)
-        self.timer.count(f"synteny.hash_joined:w{new_w}", joined)
-        return segments_per_asm, columns, terminal
+        masks = filter_common([h for h, _, _, _ in tables])
+        tables = [tuple(col[m] for col in t) for t, m in zip(tables, masks)]
+        for key, (hashes, _, _, _) in zip(self.files, tables):
+            self.timer.count(f"synteny.new_mx:w{new_w}:{key}", len(hashes))
+        return tables, terminal
 
     def extract_blocks(self, suffix: str = ""):
         """Linear paths -> blocks -> indel and >=4-mx passes over the
@@ -426,15 +403,11 @@ class SyntenyDetector:
             log(f"Extending synteny blocks with w = {new_w}")
             rnd = f":w{new_w}"
             with self.timer.stage(f"synteny.new_mx{rnd}"):
-                segments, columns, terminal = self.generate_additional_minimizers(
+                tables, terminal = self.generate_additional_minimizers(
                     blocks, new_w, prev_w
                 )
-            adj = [(k, segments[k]) for k in self.files]
             with self.timer.stage(f"synteny.graph{rnd}"):
-                graph = MinimizerGraph.build(
-                    adj, self.weights, seed=self.graph, black_list=terminal,
-                    columns=[columns[k] for k in self.files],
-                )
+                graph = MinimizerGraph.build(tables, seed=self.graph, black_list=terminal)
             self._count_graph(graph, rnd)
             # NOTE: the reference nominally re-simplifies here, but its
             # result is immediately overwritten (bin/ntsynt_synteny.py:
@@ -539,15 +512,12 @@ class SyntenyDetector:
         if len(p.w_rounds) != len(set(p.w_rounds)):
             raise ValueError("duplicate values found in w_rounds!")
 
-        for a in self.assemblies.values():
-            # nothing here reads an assembly's index: the graph's node
-            # columns take its place, and can reuse its memory
-            a.mx_info = None
+        asms = self.assemblies.values()
         with self.timer.stage("synteny.filter_common"):
-            filter_common(self.assemblies)
-        for key in self.files:
-            self.timer.count(f"synteny.common_mx:{key}",
-                             sum(len(h) for h in self.assemblies[key].lists))
+            for a, keep in zip(asms, filter_common([a.hashes for a in asms])):
+                a.hashes, a.ctg, a.pos = a.hashes[keep], a.ctg[keep], a.pos[keep]
+        for key, a in self.assemblies.items():
+            self.timer.count(f"synteny.common_mx:{key}", len(a.hashes))
         with self.timer.stage("synteny.graph"):
             self.make_minimizer_graph()
         # the reference always emits the graph artifact from

@@ -5,7 +5,7 @@ The reference stores the minimizer graph in python-igraph
 weighted edges from per-assembly adjacency. This module reimplements
 exactly the operations ntSynt uses, on flat NumPy arrays:
 
-  * build/extend from per-assembly adjacency lists with weight
+  * build/extend from per-assembly minimizer tables with weight
     accumulation (ntjoin_utils.build_graph contract, incl. ``graph=``
     seeding and ``black_list=`` suppression of terminal-terminal edges;
     bin/ntsynt_synteny.py:483),
@@ -66,9 +66,8 @@ class MinimizerGraph:
     ev: np.ndarray  # int32 [m]
     weight: np.ndarray  # int32 [m]
     # per-assembly node columns, one row per assembly in the build's
-    # adjacency order: the contig index and position of the node's
-    # minimizer in that assembly (build's ``columns``); no rows when
-    # built without columns
+    # table order: the contig index and position of the node's
+    # minimizer in that assembly; no rows in an empty() graph
     node_ctg: np.ndarray | None = None  # int32 [n_asm, n]
     node_pos: np.ndarray | None = None  # int64 [n_asm, n]
     # caches
@@ -107,45 +106,36 @@ class MinimizerGraph:
     @classmethod
     def build(
         cls,
-        adjacency_lists,
-        weights,
+        tables,
         seed: "MinimizerGraph | None" = None,
         black_list=None,
-        columns=None,
     ) -> "MinimizerGraph":
-        """Build/extend the graph from per-assembly adjacency.
+        """Build/extend the graph from per-assembly minimizer tables.
 
         Args:
-          adjacency_lists: iterable of (assembly_key, list of uint64
-            arrays) — for each assembly, its ordered minimizer lists
-            (one per contig / split segment). Must be iterated in the
-            pipeline's canonical FILES order so edge insertion order is
-            deterministic.
-          weights: dict assembly_key -> weight (ntSynt forces all 1,
-            bin/ntsynt_synteny.py:32).
-          seed: existing graph to extend (refinement rounds).
+          tables: a list of one (hashes uint64 [t], ctg int32 [t], pos
+            int64 [t], run int [t]) table per assembly, in the canonical
+            FILES order so edge insertion order is deterministic. A hash
+            occurs at most once in a table. Consecutive rows with the
+            same run id (a contig, or a refinement round's segment) are
+            adjacent; every assembly adds 1 to an edge's weight (ntSynt
+            forces all weights to 1, bin/ntsynt_synteny.py:32). ctg and
+            pos fill the node columns: a node keeps the seed's columns
+            unless a table holds its hash, whose values then win (the
+            reference's index merge, bin/ntsynt_synteny.py:282-290).
+          seed: existing graph to extend (refinement rounds), its columns
+            for the same assemblies.
           black_list: uint64 hashes (block-terminal minimizers). New
             adjacency pairs whose BOTH endpoints are black-listed are
             skipped, so two existing blocks are never bridged without
             new interior evidence — and a block's own terminals (made
-            adjacent in refinement lists because interior minimizers are
-            filtered out) don't get a spurious chord.
-          columns: None, or one (ctg int32 [t], pos int64 [t]) pair per
-            assembly, aligned with adjacency_lists, each aligned with the
-            concatenation of that assembly's lists (a hash occurs at most
-            once in an assembly's lists). They fill the node columns: a
-            node keeps the seed's columns unless an assembly's lists hold
-            its hash, whose values then win (update_list_mx_info,
-            bin/ntsynt_synteny.py:282-290). A seed with columns needs
-            columns for the same assemblies.
+            adjacent in refinement segments because interior minimizers
+            are filtered out) don't get a spurious chord.
         """
-        # ---- nodes: first-appearance order over [seed nodes] + lists --
+        # ---- nodes: first-appearance order over [seed nodes] + tables -
         hash_parts = [seed.node_hash] if seed is not None else []
-        list_cat = []
-        for _, mx_lists in adjacency_lists:
-            for mx_list in mx_lists:
-                list_cat.append(np.asarray(mx_list, dtype=np.uint64))
-        all_hashes = np.concatenate(hash_parts + list_cat) if (hash_parts or list_cat) else np.zeros(0, np.uint64)
+        hash_parts += [h for h, _, _, _ in tables]
+        all_hashes = np.concatenate(hash_parts) if hash_parts else np.zeros(0, np.uint64)
         # ONE stable argsort yields unique hashes, first-appearance
         # ranks AND the node id of every occurrence position — replacing
         # np.unique + per-assembly searchsorted re-joins (at 6M nodes /
@@ -181,17 +171,16 @@ class MinimizerGraph:
             node_hash = np.zeros(0, np.uint64)
             ids = np.zeros(0, np.int32)
 
-        # node id of occurrence slices: list_cat entries follow the
+        # node id of occurrence slices: the tables' rows follow the
         # (optional) seed prefix inside all_hashes/ids
-        id_base = len(hash_parts[0]) if hash_parts else 0
+        id_base = seed.n_nodes if seed is not None else 0
 
-        # ---- node columns: the seed's, then each list occurrence's ----
-        n_rows = len(columns) if columns is not None else 0
-        if seed is not None and len(seed.node_ctg) != n_rows:
-            raise ValueError("seed graph and columns cover different assemblies")
-        node_ctg = np.full((n_rows, len(node_hash)), -1, np.int32)
-        node_pos = np.full((n_rows, len(node_hash)), -1, np.int64)
-        if seed is not None and n_rows:
+        # ---- node columns: the seed's, then each table row's ---------
+        if seed is not None and len(seed.node_ctg) != len(tables):
+            raise ValueError("seed graph and tables cover different assemblies")
+        node_ctg = np.full((len(tables), len(node_hash)), -1, np.int32)
+        node_pos = np.full((len(tables), len(node_hash)), -1, np.int64)
+        if seed is not None:
             # the seed's nodes come first, so they keep their ids
             node_ctg[:, :id_base] = seed.node_ctg
             node_pos[:, :id_base] = seed.node_pos
@@ -215,35 +204,25 @@ class MinimizerGraph:
             loc = np.minimum(np.searchsorted(bl_sorted, hs), len(bl_sorted) - 1)
             return bl_sorted[loc] == hs
 
-        # one batched pass per assembly (not per list): adjacency pairs
-        # are consecutive positions of the concatenated lists, masked at
-        # list boundaries — identical pair order to the per-list loop,
-        # with node ids sliced straight out of `ids` (no re-joins)
-        pos = 0
+        # one batched pass per assembly: adjacency pairs are consecutive
+        # rows of one run, with node ids sliced straight out of `ids`
+        # (no re-joins)
         base = id_base
-        for ai, (asm_key, mx_lists) in enumerate(adjacency_lists):
-            wt = weights[asm_key]
-            arrs = list_cat[pos : pos + len(mx_lists)]
-            pos += len(mx_lists)
-            lens = np.asarray([len(a) for a in arrs], dtype=np.int64)
-            total = int(lens.sum())
-            idx_all = ids[base : base + total]
-            base += total
-            if n_rows:
-                node_ctg[ai, idx_all] = columns[ai][0]
-                node_pos[ai, idx_all] = columns[ai][1]
-            if total < 2:
+        for ai, (hashes, ctg, pos, run) in enumerate(tables):
+            idx_all = ids[base : base + len(hashes)]
+            base += len(hashes)
+            node_ctg[ai, idx_all] = ctg
+            node_pos[ai, idx_all] = pos
+            if len(hashes) < 2:
                 continue
-            lid = np.repeat(np.arange(len(arrs), dtype=np.int32), lens)
-            adj = lid[1:] == lid[:-1]  # pair (i, i+1) within one list
-            del lid
+            adj = run[1:] == run[:-1]  # pair (i, i+1) within one run
             if bl_sorted is not None:
-                blv = in_bl(np.concatenate(arrs))
+                blv = in_bl(hashes)
                 adj &= ~(blv[:-1] & blv[1:])
                 del blv
             occ_u.append(idx_all[:-1][adj])
             occ_v.append(idx_all[1:][adj])
-            occ_w.append(np.full(len(occ_u[-1]), wt, dtype=np.int32))
+            occ_w.append(np.ones(len(occ_u[-1]), dtype=np.int32))
             del adj
 
         if not occ_u:
@@ -293,7 +272,8 @@ class MinimizerGraph:
         )
 
     def delete_edges(self, edge_ids) -> "MinimizerGraph":
-        edge_ids = np.asarray(list(edge_ids), dtype=np.int64)
+        """Remove edges by an int array of edge ids (repeats allowed);
+        the nodes keep their ids."""
         if not len(edge_ids):
             return self
         keep = np.ones(self.n_edges, dtype=bool)

@@ -426,9 +426,18 @@ def _adjacency(case):
 
 
 def _paths(cls, case):
+    """The walk's paths over the case's graph: the JAX build takes the
+    adjacency lists, the port's one table an assembly, a list a run."""
     lists, min_w, simplify = _adjacency(case)
     adj = [(f"a{i}", [np.asarray(x, np.uint64) for x in ls]) for i, ls in enumerate(lists)]
-    g = cls.build(adj, {name: 1 for name, _ in adj})
+    if cls is JaxGraph:
+        g = cls.build(adj, {name: 1 for name, _ in adj})
+    else:
+        tables = []
+        for _, ls in adj:
+            run = np.repeat(np.arange(len(ls), dtype=np.int32), [len(x) for x in ls])
+            tables.append((np.concatenate(ls), run, np.arange(len(run), dtype=np.int64), run))
+        g = cls.build(tables)
     if simplify:
         g = g.simplify_bubbles(2)
     if min_w:

@@ -1,15 +1,17 @@
 """The graph's node columns against the hash joins they replace.
 
 Host synteny reads each node's contig and position in every assembly
-from the graph (MinimizerGraph.node_ctg / node_pos) instead of joining
-hashes against each assembly's mx_info. These tests hold the columns to
-that join, kept beside the run as the JAX package's MxInfo with
+from the graph (MinimizerGraph.node_ctg / node_pos), filled from the
+assemblies' and each round's minimizer tables, instead of joining
+hashes against an index of each assembly. These tests hold the columns
+to that join, kept beside the run as the JAX package's MxInfo with
 update_list_mx_info's merges (the new value wins): at every pass and
 refinement round of CLI runs at N = 2 and N = 4, fresh and resumed from
 the sketch TSVs; and case by case on small graphs: a round whose new
 minimizers include existing nodes, a node deleted and re-added in a
 round, the deletions carrying the columns, and the erosion walk's
-positions.
+positions. The one common filter of the tables is held to the JAX
+package's two, over the first lists and over a round's segments.
 """
 
 import numpy as np
@@ -17,19 +19,22 @@ import pytest
 
 from ntsynt_tpu.core.assembly import MxInfo as JaxMxInfo
 from ntsynt_tpu.core.assembly import AssemblyMinimizers as JaxAssembly
+from ntsynt_tpu.core.assembly import filter_common as jax_filter_common
+from ntsynt_tpu.core.assembly import filter_segments_common as jax_filter_segments_common
 from ntsynt_tpu.core.synteny import SyntenyDetector as JaxDetector
 from ntsynt_tpu.core.synteny import SyntenyParams as JaxParams
 from ntsynt_tpu_torch.cli import main as torch_main
 from ntsynt_tpu_torch.core import synteny
-from ntsynt_tpu_torch.core.assembly import AssemblyMinimizers
+from ntsynt_tpu_torch.core.assembly import AssemblyMinimizers, filter_common
 from ntsynt_tpu_torch.graph.mxgraph import MinimizerGraph
 from tests.test_torch_published_shapes import mutate, write_fasta
 
 
 class _Shadow:
-    """Each assembly's mx_info as the hash-join code kept it: the initial
-    index, merged with every round's kept minimizers, the new value
-    winning. Checks a graph's columns, and blocks' positions, against it."""
+    """Each assembly's index as the hash-join code kept it: built from
+    the assembly's table, merged with every round's kept minimizers, the
+    new value winning. Checks a graph's columns, and blocks' positions,
+    against it."""
 
     def __init__(self):
         self.info = None
@@ -38,7 +43,7 @@ class _Shadow:
         self.deleted = set()
 
     def start(self, det):
-        self.info = {k: JaxMxInfo(a.mx_info.sorted_hash, a.mx_info.ctg, a.mx_info.pos)
+        self.info = {k: JaxMxInfo.from_arrays(a.hashes, a.ctg, a.pos)
                      for k, a in det.assemblies.items()}
 
     def check_graph(self, det):
@@ -58,11 +63,10 @@ class _Shadow:
                 assert (c == b.ctg[a]).all()
         self.checks += 1
 
-    def merge(self, det, segments, new_info):
+    def merge(self, det, tables, new_info):
         nodes = set(det.graph.node_hash.tolist())
-        for key in det.files:
-            kept = (np.unique(np.concatenate(segments[key])) if segments[key]
-                    else np.zeros(0, np.uint64))
+        for key, (hashes, _, _, _) in zip(det.files, tables):
+            kept = np.unique(hashes)
             c, p = new_info[key].lookup(kept)
             self.info[key] = self.info[key].update(kept, c, p)
             self.events["overwritten"] += len(nodes.intersection(kept.tolist()))
@@ -84,7 +88,7 @@ def shadowed(monkeypatch):
         @classmethod
         def from_arrays(cls, key, *args, **kw):
             asm = AssemblyMinimizers.from_arrays(key, *args, **kw)
-            new_info[key] = asm.mx_info
+            new_info[key] = JaxMxInfo.from_arrays(asm.hashes, asm.ctg, asm.pos)
             return asm
 
     def __init__(self, assemblies, params):
@@ -197,24 +201,30 @@ def _oracle(lists, rounds=()):
     return infos
 
 
+def _runs(lists):
+    """(hashes, run id) of lists laid end to end, a list a run."""
+    run = np.repeat(np.arange(len(lists), dtype=np.int32), [len(x) for x in lists])
+    return np.concatenate([np.asarray(x, np.uint64) for x in lists]), run
+
+
 def _first(lists):
-    """The first graph: one list per contig per assembly, with positions."""
-    adj, cols = [], []
-    for a, ls in enumerate(lists):
-        adj.append((f"a{a}", [np.asarray(x, np.uint64) for x, _ in ls]))
-        cols.append((np.concatenate([np.full(len(x), ci, np.int32) for ci, (x, _) in enumerate(ls)]),
-                     np.concatenate([np.asarray(y, np.int64) for _, y in ls])))
-    return MinimizerGraph.build(adj, {k: 1 for k, _ in adj}, columns=cols)
+    """The first graph: one list per contig per assembly, with positions;
+    each assembly's table has the contig as its run."""
+    tables = []
+    for ls in lists:
+        h, ctg = _runs([x for x, _ in ls])
+        tables.append((h, ctg, np.concatenate([np.asarray(y, np.int64) for _, y in ls]), ctg))
+    return MinimizerGraph.build(tables)
 
 
 def _round(seed, segments, black_list=()):
     """A round's graph: per assembly (segment lists, ctg, pos) of its kept
-    minimizers."""
-    adj = [(f"a{a}", [np.asarray(s, np.uint64) for s in segs]) for a, (segs, _, _) in
-           enumerate(segments)]
-    cols = [(np.asarray(c, np.int32), np.asarray(p, np.int64)) for _, c, p in segments]
-    return MinimizerGraph.build(adj, {k: 1 for k, _ in adj}, seed=seed,
-                                black_list=np.asarray(black_list, np.uint64), columns=cols)
+    minimizers; each table has the segment as its run."""
+    tables = []
+    for segs, c, p in segments:
+        h, run = _runs(segs)
+        tables.append((h, np.asarray(c, np.int32), np.asarray(p, np.int64), run))
+    return MinimizerGraph.build(tables, seed=seed, black_list=np.asarray(black_list, np.uint64))
 
 
 def _assert_columns(g, infos):
@@ -292,3 +302,55 @@ def test_erosion_reads_positions_from_the_columns():
                              for u, v in zip(g.eu, g.ev))
     assert edges["torch"] == edges["jax"]
     assert len(edges["torch"]) < 6  # the walk removed edges
+
+
+# ---------------------------------------------------------------------------
+# the one common filter
+# ---------------------------------------------------------------------------
+
+
+def _tables(rng, n, parts):
+    """n duplicate-free hash tables cut into ``parts`` runs: a shared pool
+    each table draws most of its rows from in its own order, plus hashes
+    of its own; table 0's second run is empty."""
+    pool = rng.choice(1 << 62, 400, replace=False).astype(np.uint64)
+    out = []
+    for a in range(n):
+        own = (np.uint64(1 << 62) + np.uint64(1000 * a)
+               + np.arange(20, dtype=np.uint64))
+        h = rng.permutation(np.concatenate([rng.choice(pool, 300, replace=False), own]))
+        cuts = np.sort(rng.choice(np.arange(1, len(h)), parts - 1, replace=False))
+        if a == 0:
+            cuts[1] = cuts[0]
+        run = np.repeat(np.arange(parts, dtype=np.int32), np.diff([0, *cuts, len(h)]))
+        out.append((h, run))
+    return out
+
+
+@pytest.mark.parametrize("stage", ["first", "round"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_one_common_filter_keeps_the_jax_filters_rows(n, stage):
+    """filter_common's masks keep, in order, the rows the JAX package's
+    filter_common keeps of each assembly's contig lists (an empty contig
+    among them) and its filter_segments_common keeps of a round's
+    segments (an empty segment among them)."""
+    rng = np.random.default_rng(40 + n)
+    tables = _tables(rng, n, 4)
+    masks = filter_common([h for h, _ in tables])
+    if stage == "first":
+        asms = {}
+        for a, (h, run) in enumerate(tables):
+            pos = np.arange(len(h), dtype=np.int64) * 10
+            asms[f"g{a}.fa"] = JaxAssembly.from_arrays(
+                f"g{a}.fa", [f"c{i}" for i in range(4)], h, run, pos)
+        jax_filter_common(asms)
+        kept = [asms[f"g{a}.fa"].lists for a in range(n)]
+    else:
+        segs = {a: [h[run == i] for i in range(4)] for a, (h, run) in enumerate(tables)}
+        kept = list(jax_filter_segments_common(segs).values())
+    assert 0 < masks[0].sum() < len(masks[0])
+    for (h, run), keep, lists in zip(tables, masks, kept):
+        np.testing.assert_array_equal(h[keep], np.concatenate(lists))
+        np.testing.assert_array_equal(np.bincount(run[keep], minlength=4),
+                                      [len(x) for x in lists])
+    assert len(kept[0][1]) == 0

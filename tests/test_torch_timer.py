@@ -242,18 +242,13 @@ def test_counters_tsv_only_with_benchmark(tmp_path, monkeypatch, benchmark):
     want |= {f"synteny.{n}{r}" for n in ("nodes", "edges", "paths", "blocks") for r in rounds}
     want |= {f"synteny.new_mx:{r[1:]}:{g}" for r in rounds[1:] for g in ("ta.fa", "tb.fa")}
     want |= {f"synteny.gathered{r}" for r in rounds}
-    want |= {f"synteny.hash_joined{r}" for r in rounds[1:]}
     assert set(got) == want
     assert all(v > 0 for v in got.values()), got
     # a path holds at least two nodes; a path gives at most one block
     assert got["synteny.nodes"] >= 2 * got["synteny.paths"]
     assert got["synteny.paths"] >= got["synteny.blocks"]
-    # a pass gathers its paths' nodes, each once; the one hash join left
-    # is each round's new minimizers
+    # a pass gathers its paths' nodes, each once
     assert 2 * got["synteny.paths"] <= got["synteny.gathered"] <= got["synteny.nodes"]
-    for r in rounds[1:]:
-        assert got[f"synteny.hash_joined{r}"] == sum(
-            got[f"synteny.new_mx:{r[1:]}:{g}"] for g in ("ta.fa", "tb.fa"))
     # the common filter keeps the same minimizers in both assemblies
     assert got["synteny.common_mx:ta.fa"] == got["synteny.common_mx:tb.fa"]
     blocks = (tmp_path / "t.synteny_blocks.tsv").read_text().splitlines()
