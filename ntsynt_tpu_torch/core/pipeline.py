@@ -37,6 +37,7 @@ import json
 import os
 import threading
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -438,20 +439,23 @@ class NtSyntPipeline:
                         handles[fresh_queue[0]] = _dispatch(fresh_queue[0])
                     sk = _collect(handle)
                     if cfg.write_artifacts:
-                        # the per-minimizer k-mer strings and the file
-                        # write run on a background thread, one contig's
-                        # strings at a time: a whole genome's (about 90 B
-                        # a minimizer) would be held beside host synteny's
-                        # first graph
+                        # the k-mers' bytes and the file write run on a
+                        # background thread, one contig at a time; the
+                        # records are formatted with the interpreter lock
+                        # released (io/textfmt.py)
                         def _write_tsv(sk=sk, g=genomes[name], tsv_path=tsv_path):
+                            # contig_idx is non-decreasing: a contig's rows are one slice
+                            ends = np.searchsorted(sk.contig_idx, np.arange(len(sk.contig_names) + 1))
+
                             def recs():
                                 for ci, cname in enumerate(sk.contig_names):
-                                    mask = sk.contig_idx == ci
-                                    pos = sk.positions[mask]
-                                    yield cname, sk.hashes[mask], pos, g.kmer_strings(ci, pos, cfg.k)
+                                    rows = slice(ends[ci], ends[ci + 1])
+                                    pos = sk.positions[rows]
+                                    yield cname, sk.hashes[rows], pos, g.kmer_bytes(ci, pos, cfg.k)
 
                             with self.timer.stage(f"write.sketch_tsv:{g.name}"):
-                                sketch_tsv.write_sketch_tsv(tsv_path, recs())
+                                n = sketch_tsv.write_sketch_tsv(tsv_path, recs())
+                            self.timer.count(f"write.records:sketch_tsv:{g.name}", n)
 
                         t = threading.Thread(target=_write_tsv, name=f"write.sketch_tsv:{name}")
                         t.start()

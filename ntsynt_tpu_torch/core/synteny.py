@@ -25,6 +25,7 @@ import threading
 import numpy as np
 
 from ..graph.mxgraph import MinimizerGraph
+from ..io import textfmt
 from ..ops import sketch as sketch_ops
 from ..utils import StageTimer, log
 from . import blocks as blk
@@ -155,25 +156,22 @@ class SyntenyDetector:
         self.timer.count(f"synteny.nodes{suffix}", graph.n_nodes)
         self.timer.count(f"synteny.edges{suffix}", graph.n_edges)
 
-    def write_dot(self, path: str, graph=None):
+    def write_dot(self, path: str, graph=None) -> int:
         """Emit the minimizer graph as Graphviz (the reference's
-        <prefix>.mx.dot artifact from make_minimizer_graph)."""
+        <prefix>.mx.dot artifact from make_minimizer_graph), its node and
+        edge lines formatted by the host library (io/textfmt.py).
+        Returns the node and edge lines written."""
         g = self.graph if graph is None else graph
-        with open(path, "w", encoding="utf-8") as f:
-            f.write("graph {\n")
-            f.writelines(
-                f'  n{i} [label="{h}"];\n' for i, h in enumerate(g.node_hash)
-            )
-            f.writelines(
-                f"  n{u} -- n{v} [weight={w}];\n"
-                for u, v, w in zip(g.eu, g.ev, g.weight)
-            )
-            f.write("}\n")
+        with open(path, "wb") as f:
+            f.write(b"graph {\n")
+            n = textfmt.dot_lines(f, g.node_hash, g.eu, g.ev, g.weight)
+            f.write(b"}\n")
+        return n
 
     def write_dot_async(self, path: str):
         """Start write_dot on a background thread (gigabase graphs
-        format millions of text lines — seconds of host wall that
-        nothing downstream waits on); returns the thread. run() joins
+        write millions of lines, which nothing downstream waits on);
+        returns the thread. run() joins
         it before returning so the artifact contract holds. The graph is
         snapshotted HERE, on the caller thread: run() reassigns
         self.graph (simplify_bubbles / filter_global) right after
@@ -183,7 +181,8 @@ class SyntenyDetector:
 
         def write():
             with self.timer.stage("write.dot"):
-                self.write_dot(path, g)
+                n = self.write_dot(path, g)
+            self.timer.count("write.records:dot", n)
 
         t = threading.Thread(target=write, name="write.dot")
         t.start()

@@ -32,8 +32,6 @@ for _i, _c in enumerate(b"ACGT"):
     CODE_LUT[_c] = _i
     CODE_LUT[_c + 32] = _i  # lowercase
 
-# byte code | soft-mask bit << 3 -> the base's letter
-_DECODE = bytes.maketrans(bytes([*range(5), *range(8, 13)]), b"ACGTNacgtn")
 SOFT_LUT = np.zeros(256, dtype=bool)
 SOFT_LUT[list(b"acgt")] = True
 
@@ -63,34 +61,29 @@ class PackedGenome:
     def total_bases(self) -> int:
         return int(self.lengths.sum())
 
-    def kmer_strings(self, contig_idx: int, positions, k: int) -> list:
-        """The file's bytes of the k-mers at ``positions`` of a contig, for
-        k-mers of ``ACGTacgt`` alone (every minimizer's): the codes
-        decoded, lowercase where the soft-mask bit is set (uppercase
-        without ``soft``). Batch decode: row gathers of windows and one
-        translate instead of a per-minimizer Python loop (the sketch-TSV
-        writer decodes ~2L/w k-mers per genome; the loop's GIL time
-        contended with the synteny stage when the writer runs on a
-        background thread)."""
+    def kmer_bytes(self, contig_idx: int, positions, k: int) -> np.ndarray:
+        """The file's bytes of the k-mers at ``positions`` of a contig,
+        uint8 [n, k], for k-mers of ``ACGTacgt`` alone (every
+        minimizer's): the codes decoded, lowercase where the soft-mask bit
+        is set (uppercase without ``soft``). One host-library call
+        (textfmt_kmers), which releases the interpreter lock: the
+        sketch-TSV writer takes the array whole (io/textfmt.py), with no
+        Python object a k-mer."""
         pos = np.asarray(positions, dtype=np.int64)
+        out = np.empty((len(pos), k), np.uint8)
         if len(pos) == 0:
-            return []
+            return out
+        if pos.min() < 0 or pos.max() + k > self.lengths[contig_idx]:
+            raise ValueError(f"kmer_bytes: k-mers outside contig {contig_idx}")
         q = int(self.offsets[contig_idx]) + pos
-        mat = np.lib.stride_tricks.sliding_window_view(self.codes, k)[q]
-        if self.soft is not None:
-            mat |= self._soft_bits(q, k) << 3
-        letters = np.frombuffer(mat.tobytes().translate(_DECODE), dtype=np.uint8)
-        return [s.decode() for s in letters.view(f"S{k}")]
+        _native_lib().textfmt_kmers(
+            self.codes.ctypes.data, None if self.soft is None else self.soft.ctypes.data,
+            q.ctypes.data, len(q), k, out.ctypes.data)
+        return out
 
-    def _soft_bits(self, q, k: int) -> np.ndarray:
-        """uint8 [len(q), k]: the soft-mask bits of bases q .. q + k - 1.
-        Each row unpacks the nb bytes from q's byte on (from the last nb
-        bytes near the end), which hold its k bits at q - 8 * start."""
-        windows = np.lib.stride_tricks.sliding_window_view
-        nb = min((k + 14) // 8, len(self.soft))
-        start = np.minimum(q >> 3, len(self.soft) - nb)
-        bits = np.unpackbits(windows(self.soft, nb)[start], axis=1, bitorder="little")
-        return windows(bits, k, axis=1)[np.arange(len(q)), q - 8 * start]
+    def kmer_strings(self, contig_idx: int, positions, k: int) -> list:
+        """kmer_bytes as a list of str."""
+        return [s.decode() for s in self.kmer_bytes(contig_idx, positions, k).view(f"S{k}")[:, 0]]
 
 
 def _native_lib():

@@ -10,23 +10,28 @@ start, ``seq`` the raw k-mer bases.
 
 import numpy as np
 
+from . import textfmt
 
-def write_sketch_tsv(path: str, contig_records) -> str:
-    """Write a sketch TSV.
+
+def write_sketch_tsv(path: str, contig_records) -> int:
+    """Write a sketch TSV, its records formatted by the host library
+    (io/textfmt.py).
 
     Args:
       path: output filename.
       contig_records: iterable of (contig_name, hashes u64[n], positions
-        int64[n], seqs list[str]) — one tuple per contig, in genome order.
-        Contigs with zero minimizers still get a line (name + tab).
+        int64[n], seqs uint8[n, k], the k-mers' bytes) — one tuple per
+        contig, in genome order. Contigs with zero minimizers still get a
+        line (name + tab).
+    Returns the number of records written.
     """
-    with open(path, "w", encoding="utf-8") as fout:
+    written = 0
+    with open(path, "wb") as fout:
         for name, hashes, positions, seqs in contig_records:
-            recs = " ".join(
-                f"{int(h)}:{int(p)}:{s}" for h, p, s in zip(hashes, positions, seqs)
-            )
-            fout.write(f"{name}\t{recs}\n")
-    return path
+            fout.write(f"{name}\t".encode())
+            written += textfmt.sketch_records(fout, hashes, positions, seqs)
+            fout.write(b"\n")
+    return written
 
 
 def read_sketch_tsv(path: str):

@@ -11,7 +11,8 @@ is redone only when the SHA-256 of the sources and flags changes.
 
 The host helpers (``csrc/host/*.cpp``: the OpenMP FASTA packer and the
 chain walker, the JAX package's ``csrc/fastaio.cpp`` and
-``csrc/graphwalk.cpp``) are built apart from the kernels, by ``g++``
+``csrc/graphwalk.cpp``, and the text artifacts' formatters,
+``textfmt.cpp``) are built apart from the kernels, by ``g++``
 (``$CXX`` if set; no ``-march``, so the library runs on any CPU of the
 build host's architecture) into ``_build/libntsynt_host.so``, linked
 against torch's OpenMP runtime; ``build_host`` needs no CUDA.
@@ -118,6 +119,14 @@ _HOST_SIGNATURES = {
     "fastaio_pack_stream": (None, [_P, _P, _P, _P, _I64, _I64, _P, _P, ctypes.c_int]),
     # nxt, du, dv, poison, starts, n_starts, m2, out_nodes, out_offsets, out_cap
     "graphwalk_chains": (_I64, [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64]),
+    # hashes, positions, seqs, k, first, n, out, cap, n_bytes (textfmt.cpp)
+    "textfmt_sketch": (_I64, [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _I64P]),
+    # hashes, first, n, out, cap, n_bytes
+    "textfmt_dot_nodes": (_I64, [_P, _I64, _I64, _P, _I64, _I64P]),
+    # eu, ev, weight, first, n, out, cap, n_bytes
+    "textfmt_dot_edges": (_I64, [_P, _P, _P, _I64, _I64, _P, _I64, _I64P]),
+    # codes, soft (NULL: none), starts, n, k, out
+    "textfmt_kmers": (None, [_P, _P, _P, _I64, _I64, _P]),
     # the OpenMP runtime the library links (the calling thread's ICV)
     "omp_get_max_threads": (ctypes.c_int, []),
     "omp_set_num_threads": (None, [ctypes.c_int]),

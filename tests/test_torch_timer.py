@@ -2,7 +2,8 @@
 records with it: parents per thread, the unix clock, time.tsv's calls and
 self_s, spans.tsv against time.tsv, one RSS sampler thread, and a CLI run
 seen through a wrapper of StageTimer.stage like the benchmark's; its
-counters (StageTimer.count) and counters.tsv."""
+counters (StageTimer.count) and counters.tsv, the writers' record counts
+among them."""
 
 import sys
 import threading
@@ -242,6 +243,7 @@ def test_counters_tsv_only_with_benchmark(tmp_path, monkeypatch, benchmark):
     want |= {f"synteny.{n}{r}" for n in ("nodes", "edges", "paths", "blocks") for r in rounds}
     want |= {f"synteny.new_mx:{r[1:]}:{g}" for r in rounds[1:] for g in ("ta.fa", "tb.fa")}
     want |= {f"synteny.gathered{r}" for r in rounds}
+    want |= {f"write.records:sketch_tsv:{g}" for g in ("ta.fa", "tb.fa")} | {"write.records:dot"}
     assert set(got) == want
     assert all(v > 0 for v in got.values()), got
     # a path holds at least two nodes; a path gives at most one block
@@ -253,6 +255,14 @@ def test_counters_tsv_only_with_benchmark(tmp_path, monkeypatch, benchmark):
     assert got["synteny.common_mx:ta.fa"] == got["synteny.common_mx:tb.fa"]
     blocks = (tmp_path / "t.synteny_blocks.tsv").read_text().splitlines()
     assert len({r.split("\t")[0] for r in blocks}) <= got["synteny.blocks:w100"]
+    # the writers count what they wrote: each genome's minimizers, and
+    # the first graph's node and edge lines
+    for g in ("ta.fa", "tb.fa"):
+        rows = (tmp_path / f"{g}.k24.w250.tsv").read_text().splitlines()
+        assert got[f"write.records:sketch_tsv:{g}"] == sum(
+            len(r.split("\t")[1].split()) for r in rows)
+    assert got["write.records:dot"] == got["synteny.nodes"] + got["synteny.edges"]
+    assert got["write.records:dot"] == len((tmp_path / "t.mx.dot").read_text().splitlines()) - 2
 
 
 def test_cli_spans_through_the_benchmark_wrapper(tmp_path, monkeypatch):
