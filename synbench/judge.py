@@ -11,8 +11,9 @@ Numbers compared, each against its limit (limits.json):
     start, end and relative strand; gen.to_a); a row on the wrong contig
     or strand, or across the end of the contig the truth puts it on,
     counts the block's length;
-  - ``uncovered_pct``: the largest share of a genome's bases outside
-    every block, in percent.
+  - ``uncovered_pct``: the largest share of a genome's non-N bases
+    outside every block, in percent (a run of N holds no k-mer, so no
+    block can cover it; a block that spans one is not held to it).
 """
 
 import json
@@ -103,11 +104,24 @@ def block_errors(blocks: dict, genomes) -> tuple:
     uncovered = 0.0
     for g in genomes:
         iv = sorted(covered[g.name])
-        tot, reach = 0, 0
+        tot, reach, merged = 0, 0, []
         for s, e in iv:
             s = max(s, reach)
             if e > s:
                 tot += e - s
                 reach = e
-        uncovered = max(uncovered, 100.0 * (1 - tot / g.total))
+                merged.append((s, e))
+        if g.gaps is not None:
+            tot -= _overlap(merged, g.gaps)
+        uncovered = max(uncovered, 100.0 * (1 - tot / (g.total - g.gap_bp)))
     return worst, uncovered
+
+
+def _overlap(merged: list, gaps: np.ndarray) -> int:
+    """Bases that the disjoint intervals merged and gaps share."""
+    if not merged or len(gaps) == 0:
+        return 0
+    iv = np.asarray(merged, np.int64)
+    lo = np.maximum(iv[:, None, 0], gaps[None, :, 0])
+    hi = np.minimum(iv[:, None, 1], gaps[None, :, 1])
+    return int(np.clip(hi - lo, 0, None).sum())

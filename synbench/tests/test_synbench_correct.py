@@ -3,12 +3,14 @@ CPU at a test size (the harness's look for a card skipped, the jobs run
 with --device cpu): a sound run is correct, and a run whose timed path is
 broken underneath is not, once for each fault the cells can have. Also
 the control: the reference with half the filter's bits fails the sketch
-comparison."""
+comparison. The soft-masked, gapped pair (tests/data/tiny_sm.json) is
+held the same way."""
 
 import json
 import os
 import textwrap
 
+import numpy as np
 import pytest
 
 from synbench import control, gen, judge, run
@@ -65,9 +67,10 @@ FAULTS = {
 def _bench():
     with open(os.path.join(ROOT, "BENCHMARK.json")) as fin:
         bench = json.load(fin)
-    bench["configs"].append({"name": "tiny", "file": "synbench/tests/data/tiny.json"})
-    bench["workloads"].append({"name": "tiny.div01", "config": "tiny", "traffic": "div01",
-                               "chips": 1})
+    for name in ("tiny", "tiny_sm"):
+        bench["configs"].append({"name": name, "file": f"synbench/tests/data/{name}.json"})
+        bench["workloads"].append({"name": f"{name}.div01", "config": name, "traffic": "div01",
+                                   "chips": 1})
     return bench
 
 
@@ -86,7 +89,7 @@ def _on_cpu(monkeypatch):
     monkeypatch.setattr(_kernels, "build", lambda: "")
 
 
-def _run(tmp_path, monkeypatch, capsys, fault=None, trace=False):
+def _run(tmp_path, monkeypatch, capsys, fault=None, trace=False, workload="tiny.div01"):
     if fault:
         d = tmp_path / "fault"
         d.mkdir()
@@ -94,7 +97,7 @@ def _run(tmp_path, monkeypatch, capsys, fault=None, trace=False):
         monkeypatch.setenv("PYTHONPATH", str(d))
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     _on_cpu(monkeypatch)
-    line = run.run("tiny.div01", SEED, 0.1, trace)
+    line = run.run(workload, SEED, 0.1, trace)
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == line
     assert list(line)[-1] == "checks"
     return line
@@ -121,6 +124,56 @@ def test_a_broken_run_is_not_correct(tmp_path, monkeypatch, capsys, fault, numbe
     assert not line["correct"]
     c = line["checks"][number]
     assert c["value"] > c["limit"], line["checks"]
+
+
+def test_soft_masked_gapped_run_is_correct(tmp_path, monkeypatch, capsys):
+    """Repeats, lowercase and N through the port and the plain reference
+    on the CPU: the cascade and every sketch record agree, and the blocks
+    leave next to none of the non-N bases uncovered."""
+    line = _run(tmp_path, monkeypatch, capsys, workload="tiny_sm.div01")
+    assert line["correct"], line["checks"]
+    c = line["checks"]
+    assert c["cascade_diff"]["value"] == 0 and c["sketch_diff"]["value"] == 0
+    assert 0 <= c["uncovered_pct"]["value"] <= c["uncovered_pct"]["limit"]
+
+
+@pytest.mark.parametrize("fault,number", [
+    ("state_unchanged", "cascade_diff"),
+    ("record_altered", "sketch_diff"),
+    ("block_end_altered", "block_err_bp"),
+    ("half_left_out", "uncovered_pct"),
+])
+def test_a_broken_soft_masked_run_is_not_correct(tmp_path, monkeypatch, capsys, fault, number):
+    line = _run(tmp_path, monkeypatch, capsys, fault=fault, workload="tiny_sm.div01")
+    assert not line["correct"]
+    c = line["checks"][number]
+    assert c["value"] > c["limit"], line["checks"]
+
+
+def _two(gaps):
+    """Genome A and a copy, 1000 bases in one contig, with these gaps."""
+    return [gen.Genome(gen.genome_name(i), np.zeros(1000, np.uint8), ["chr1"],
+                       np.array([1000]), None, None, None, gaps) for i in range(2)]
+
+
+@pytest.mark.parametrize("spans,gaps,want", [
+    # no N: the share of all bases, as before N was counted apart
+    ([(0, 900)], None, 10.0),
+    ([(0, 900)], np.zeros((0, 2), np.int64), 10.0),
+    ([(0, 100), (300, 750)], None, 45.0),
+    # a gap of 100 N inside [100, 200) and one at the end: 850 non-N bases
+    ([(0, 100), (200, 900)], np.array([[100, 200], [950, 1000]]), 100 * 50 / 850),
+    # a block across the gap is not held to its N
+    ([(0, 950)], np.array([[100, 200], [950, 1000]]), 0.0),
+    # covered: [200, 500) of it non-N
+    ([(150, 500)], np.array([[100, 200], [950, 1000]]), 100 * 550 / 850),
+])
+def test_uncovered_pct_counts_non_n_bases(spans, gaps, want):
+    gs = _two(gaps)
+    blocks = {str(i): {g.name: ("chr1", s, e, "+") for g in gs} for i, (s, e) in enumerate(spans)}
+    err, unc = judge.block_errors(blocks, gs)
+    assert err == 0
+    assert unc == pytest.approx(want, abs=1e-9)
 
 
 def test_control_fails_the_sketch(tmp_path):
