@@ -19,20 +19,24 @@ sketch TSV filename; we strip the .k<k>.w<w>.tsv suffix at print time
 either way, so the basename is the stable identity).
 """
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 
 
-def _dedupe_mask(hashes: np.ndarray) -> np.ndarray:
-    """True where the hash occurs exactly once in the array."""
+def _dedupe_mask(hashes: np.ndarray):
+    """(keep, dup_hashes, dropped): True where the hash occurs exactly
+    once in the array; how many hashes occur more than once, and how many
+    entries hold them (the entries that keep drops)."""
     uniq, counts = np.unique(hashes, return_counts=True)
-    dup = uniq[counts > 1]
+    repeated = counts > 1
+    dup = uniq[repeated]
     if len(dup) == 0:
-        return np.ones(len(hashes), dtype=bool)
+        return np.ones(len(hashes), dtype=bool), 0, 0
     loc = np.searchsorted(dup, hashes)
     loc = np.minimum(loc, len(dup) - 1)
-    return dup[loc] != hashes
+    return dup[loc] != hashes, len(dup), int(counts[repeated].sum())
 
 
 def _membership(hashes: np.ndarray, sorted_set: np.ndarray) -> np.ndarray:
@@ -58,43 +62,61 @@ class AssemblyMinimizers:
     genome: object | None = None  # io.fasta.PackedGenome when available
 
     @classmethod
-    def from_sketch(cls, sk, genome=None, repeat_canon_filter=None) -> "AssemblyMinimizers":
+    def from_sketch(cls, sk, genome=None, repeat_canon_filter=None,
+                    timer=None) -> "AssemblyMinimizers":
         """Build from ops.sketch.GenomeSketch.
 
         repeat_canon_filter: optional callable(canon u64[m]) -> bool mask
         of minimizers to DROP (the --filter Filter repeat-BF path,
-        bin/ntsynt_synteny.py:605-607).
+        bin/ntsynt_synteny.py:605-607). timer: as in from_arrays.
         """
         hashes, cidx, pos = sk.hashes, sk.contig_idx, sk.positions
         if repeat_canon_filter is not None:
             keep = ~repeat_canon_filter(sk.canon)
             hashes, cidx, pos = hashes[keep], cidx[keep], pos[keep]
-        return cls.from_arrays(sk.name, sk.contig_names, hashes, cidx, pos, genome)
+        return cls.from_arrays(sk.name, sk.contig_names, hashes, cidx, pos, genome, timer)
 
     @classmethod
-    def from_arrays(cls, key, contig_names, hashes, cidx, pos, genome=None) -> "AssemblyMinimizers":
+    def from_arrays(cls, key, contig_names, hashes, cidx, pos, genome=None, timer=None,
+                    tag=None) -> "AssemblyMinimizers":
         """Build from flat (hash, contig_idx, position) arrays already
-        ordered by (contig, position); applies read_minimizers dedupe."""
-        hashes = np.asarray(hashes, np.uint64)
-        keep = _dedupe_mask(hashes)
-        return cls(
-            key=key,
-            contig_names=list(contig_names),
-            hashes=hashes[keep],
-            ctg=np.asarray(cidx, np.int32)[keep],
-            pos=np.asarray(pos, np.int64)[keep],
-            genome=genome,
-        )
+        ordered by (contig, position); applies read_minimizers dedupe.
+
+        timer: a utils.StageTimer, or None. With one, the dedupe and its
+        gathers are the span ``assembly.dedupe:<tag>``, and the counters
+        ``assembly.records:<tag>``, ``assembly.dup_dropped:<tag>`` and
+        ``assembly.dup_hashes:<tag>`` get the entries in, the entries
+        dropped and the hashes found more than once (tag: the key unless
+        given; a refinement round's is ``w<w>:<key>``)."""
+        tag = tag or key
+        span = timer.stage(f"assembly.dedupe:{tag}") if timer else contextlib.nullcontext()
+        with span:
+            hashes = np.asarray(hashes, np.uint64)
+            keep, dup_hashes, dropped = _dedupe_mask(hashes)
+            table = cls(
+                key=key,
+                contig_names=list(contig_names),
+                hashes=hashes[keep],
+                ctg=np.asarray(cidx, np.int32)[keep],
+                pos=np.asarray(pos, np.int64)[keep],
+                genome=genome,
+            )
+        if timer:
+            timer.count(f"assembly.records:{tag}", len(hashes))
+            timer.count(f"assembly.dup_dropped:{tag}", dropped)
+            timer.count(f"assembly.dup_hashes:{tag}", dup_hashes)
+        return table
 
     @classmethod
     def from_tsv_records(
-        cls, key, records, genome=None, repeat_out_filter=None
+        cls, key, records, genome=None, repeat_out_filter=None, timer=None
     ) -> "AssemblyMinimizers":
         """Build from io.sketch_tsv.read_sketch_tsv output.
 
         repeat_out_filter: optional callable(printed u64[m]) -> bool mask
         of minimizers to DROP (--filter Filter at TSV load time,
         read_minimizers(repeat_bf), bin/ntsynt_synteny.py:604-607).
+        timer: as in from_arrays.
         """
         names = [r[0] for r in records]
         hashes = np.concatenate([r[1] for r in records]) if records else np.zeros(0, np.uint64)
@@ -105,7 +127,7 @@ class AssemblyMinimizers:
         if repeat_out_filter is not None and len(hashes):
             keep = ~repeat_out_filter(hashes)
             hashes, cidx, pos = hashes[keep], cidx[keep], pos[keep]
-        return cls.from_arrays(key, names, hashes, cidx, pos, genome)
+        return cls.from_arrays(key, names, hashes, cidx, pos, genome, timer)
 
 
 def filter_common(hash_arrays) -> list:

@@ -14,7 +14,8 @@ Like snakemake's mtime DAG, an existing sketch TSV newer than its fasta
 (and the common BF) is reused instead of re-sketched, and a fresh
 byte-complete .bf is loaded instead of rebuilt; --force recomputes
 everything. A .bf is a resume stub unless ``bf_artifact="full"``.
-Spans of the host work and counts of synteny's work are recorded
+Spans of the host work and counts of the reads', the dedupe's and
+synteny's work are recorded
 (utils/timer.py) and, under --benchmark, written to <prefix>.time.tsv,
 <prefix>.spans.tsv and <prefix>.counters.tsv.
 
@@ -193,6 +194,8 @@ class _LazyGenomes:
                     g = fio.read_fasta(self._paths[name], threads=cfg.threads)
                     if cfg.write_artifacts:
                         fio.write_fai(g, os.path.join(cfg.out_dir, f"{g.name}.fai"))
+                runner.timer.count(f"read.n_bases:{name}", g.n_bases)
+                runner.timer.count(f"read.soft_bases:{name}", g.soft_bases)
                 self._loaded[name] = g
         return self._loaded[name]
 
@@ -429,7 +432,7 @@ class NtSyntPipeline:
                     if mesh is not None:
                         records = pmesh.broadcast_object(records, mesh)
                     assemblies[name] = AssemblyMinimizers.from_tsv_records(
-                        name, records, genome=genomes[name]
+                        name, records, genome=genomes[name], timer=self.timer
                     )
             else:
                 with self.timer.stage(f"sketch:{name}"):
@@ -462,7 +465,8 @@ class NtSyntPipeline:
                         artifact_threads.append(t)
                 with self.timer.stage(f"assembly:{name}"):
                     assemblies[name] = AssemblyMinimizers.from_sketch(
-                        sk, genome=genomes[name], repeat_canon_filter=rep_filter
+                        sk, genome=genomes[name], repeat_canon_filter=rep_filter,
+                        timer=self.timer,
                     )
             log(f"{name}: {len(assemblies[name].hashes)} minimizers kept")
         streams.clear()

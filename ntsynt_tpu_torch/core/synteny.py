@@ -151,10 +151,14 @@ class SyntenyDetector:
         self._count_graph(self.graph)
 
     def _count_graph(self, graph, suffix: str = ""):
-        """The synteny.nodes and synteny.edges counters of a graph as
-        built (``suffix``: the refinement round's ":w<w>")."""
+        """The synteny.nodes, synteny.edges and synteny.branch_nodes
+        (nodes of degree > 2) counters of a graph as built, before it is
+        simplified or filtered (``suffix``: the refinement round's
+        ":w<w>")."""
         self.timer.count(f"synteny.nodes{suffix}", graph.n_nodes)
         self.timer.count(f"synteny.edges{suffix}", graph.n_edges)
+        self.timer.count(f"synteny.branch_nodes{suffix}",
+                         int(np.count_nonzero(graph.degree() > 2)))
 
     def write_dot(self, path: str, graph=None) -> int:
         """Emit the minimizer graph as Graphviz (the reference's
@@ -352,6 +356,8 @@ class SyntenyDetector:
                     sk.hashes,
                     seg_ctg[sk.contig_idx],
                     sk.positions + seg_off[sk.contig_idx],
+                    timer=self.timer,
+                    tag=f"w{new_w}:{asm.key}",
                 )
                 asm_intervals = {
                     c: iv for (ai, c), iv in intervals.items() if ai == a

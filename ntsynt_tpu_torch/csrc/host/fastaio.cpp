@@ -16,7 +16,8 @@
 //   fastaio_fill (parallel over contigs): strip newlines and write the
 //     base codes (A=0 C=1 G=2 T=3 other=4, via a LUT) and the soft-mask
 //     bits (bit i of soft[i / 8], at i % 8: base i is one of a c g t)
-//     into the caller's buffers.
+//     into the caller's buffers, counting the bases of code 4 and the
+//     soft-masked ones as it goes.
 //
 // Exposed as a tiny C ABI consumed through ctypes (no pybind11 in the
 // image). The handle owns the mapping and the contig table until
@@ -76,6 +77,7 @@ struct EdgeByte {
 
 uint8_t g_lut[256];
 uint8_t g_soft[256];  // 1 for a c g t
+uint8_t g_pop[256];   // set bits of a byte (built without -march, popcount is a call)
 
 void init_lut() {
   static bool done = false;
@@ -89,6 +91,7 @@ void init_lut() {
     g_lut[(unsigned char)lower[i]] = (uint8_t)i;
     g_soft[(unsigned char)lower[i]] = 1;
   }
+  for (int v = 0; v < 256; ++v) g_pop[v] = (uint8_t)__builtin_popcount(v);
   done = true;
 }
 
@@ -175,8 +178,10 @@ void* fastaio_scan(const char* path) {
 
 // Write the scanned file's bases into codes (uint8 [total]) and, unless
 // soft is null, their soft-mask bits into soft (uint8 [ceil(total / 8)];
-// the padding bits of its last byte are 0).
-void fastaio_fill(void* h, uint8_t* codes, uint8_t* soft, int threads) {
+// the padding bits of its last byte are 0). counts (int64 [2]) gets the
+// bases of code 4 (N and every other letter that is no base) and the
+// lowercase acgt bases, counted in the same pass and summed over threads.
+void fastaio_fill(void* h, uint8_t* codes, uint8_t* soft, int threads, int64_t* counts) {
   const Parsed* p = (const Parsed*)h;
   const char* data = p->map;
   const std::vector<Contig>& contigs = p->contigs;
@@ -187,7 +192,8 @@ void fastaio_fill(void* h, uint8_t* codes, uint8_t* soft, int threads) {
 #if defined(_OPENMP)
   if (threads > 0) omp_set_num_threads(threads);
 #endif
-#pragma omp parallel for schedule(dynamic)
+  int64_t n_bases = 0, soft_bases = 0;
+#pragma omp parallel for schedule(dynamic) reduction(+ : n_bases, soft_bases)
   for (int64_t i = 0; i < n_contigs; ++i) {
     const Contig& c = contigs[(size_t)i];
     uint8_t* out_code = codes + c.out_offset;
@@ -202,10 +208,27 @@ void fastaio_fill(void* h, uint8_t* codes, uint8_t* soft, int threads) {
       if (re > sp && data[re - 1] == '\r') re--;
       const size_t bases = re - sp;
       const unsigned char* src = (const unsigned char*)data + sp;
+      // per-line sums in locals, so the loops keep them in registers
+      int64_t line_n = 0, line_soft = 0;
       for (size_t b = 0; b < bases; ++b) out_code[written + b] = g_lut[src[b]];
+      {  // code 4 is the one code with bit 2 set: 8 codes a word, in cache
+        const uint8_t* c8 = out_code + written;
+        size_t b = 0;
+        while (b + 8 <= bases) {
+          uint64_t lanes = 0;  // per-byte sums, at most 31 each
+          for (int w = 0; w < 31 && b + 8 <= bases; ++w, b += 8) {
+            uint64_t x;
+            memcpy(&x, c8 + b, 8);
+            lanes += (x >> 2) & 0x0101010101010101ULL;
+          }
+          line_n += (int64_t)((lanes * 0x0101010101010101ULL) >> 56);
+        }
+        for (; b < bases; ++b) line_n += c8[b] >> 2;
+      }
       if (soft) {
         size_t b = 0;
         for (; b < bases && (g & 7); ++b) {  // up to the next whole byte
+          line_soft += g_soft[src[b]];
           acc |= (uint8_t)(g_soft[src[b]] << (g & 7));
           if ((++g & 7) == 0) {
             if (g - 8 >= c.out_offset) {
@@ -220,10 +243,17 @@ void fastaio_fill(void* h, uint8_t* codes, uint8_t* soft, int threads) {
           uint8_t v = 0;
           for (int j = 0; j < 8; ++j) v |= (uint8_t)(g_soft[src[b + j]] << j);
           soft[g >> 3] = v;
+          line_soft += g_pop[v];
         }
-        for (; b < bases; ++b, ++g)  // the line ends inside this byte
+        for (; b < bases; ++b, ++g) {  // the line ends inside this byte
+          line_soft += g_soft[src[b]];
           acc |= (uint8_t)(g_soft[src[b]] << (g & 7));
+        }
+      } else {
+        for (size_t b = 0; b < bases; ++b) line_soft += g_soft[src[b]];
       }
+      n_bases += line_n;
+      soft_bases += line_soft;
       written += bases;
       sp = nl ? le + 1 : c.seq_end;
     }
@@ -235,6 +265,8 @@ void fastaio_fill(void* h, uint8_t* codes, uint8_t* soft, int threads) {
     if (e.index >= 0) soft[e.index] = 0;
   for (const EdgeByte& e : edges)
     if (e.index >= 0) soft[e.index] |= e.bits;
+  counts[0] = n_bases;
+  counts[1] = soft_bases;
 }
 
 int64_t fastaio_n_contigs(void* h) { return (int64_t)((Parsed*)h)->lengths.size(); }

@@ -89,10 +89,11 @@ class MinimizerGraph:
 
     def degree(self) -> np.ndarray:
         if self._degree is None:
-            d = np.zeros(self.n_nodes, dtype=np.int32)
-            np.add.at(d, self.eu, 1)
-            np.add.at(d, self.ev, 1)
-            self._degree = d
+            # bincount, not np.add.at: about ten times faster at a
+            # million edges, and the counters read every graph's degrees
+            d = np.bincount(self.eu, minlength=self.n_nodes)
+            d += np.bincount(self.ev, minlength=self.n_nodes)
+            self._degree = d.astype(np.int32)
         return self._degree
 
     # ------------------------------------------------------------------

@@ -5,14 +5,15 @@ Replacement for the reference's file-oriented sequence layer
 one parse produces
 
   * ``codes``: uint8 per base, A=0 C=1 G=2 T=3, anything else=4
-    (case-insensitive, so soft-masked genomes hash like indexlr's), and
+    (case-insensitive, so soft-masked genomes hash like indexlr's),
   * ``soft``: one bit a base, set where the base is one of ``acgt``
     (with the codes it gives back the ``seq`` column of sketch TSVs
     byte-identically: every byte of a valid k-mer is one of ``ACGTacgt``),
-    and
   * a contig table equivalent to a `samtools faidx` .fai (name, length,
     byte offset, linebases, linewidth) so we can write a matching .fai
-    without shelling out (rule faidx, bin/ntsynt_run_pipeline.smk:48-53).
+    without shelling out (rule faidx, bin/ntsynt_run_pipeline.smk:48-53), and
+  * the counts of the bases of code 4 and of the soft-masked bases,
+    taken in the same pass.
 
 Plain files are parsed by the host library's OpenMP packer
 (``csrc/host/fastaio.cpp``, built by ops/_kernels.build_host), which
@@ -52,6 +53,11 @@ class PackedGenome:
     fai_offsets: np.ndarray  # int64 byte offset of first base in file
     fai_linebases: np.ndarray  # int64 bases per line
     fai_linewidth: np.ndarray  # int64 bytes per line (incl newline)
+    # what the read counted: bases of code 4 (N, or any other letter
+    # that is no base) and soft-masked (acgt) bases; None for a genome
+    # not read from a file
+    n_bases: int | None = None
+    soft_bases: int | None = None
 
     @property
     def n_contigs(self) -> int:
@@ -178,9 +184,10 @@ def _read_fasta_native(path: str, keep_raw: bool, lib, threads: int = 0) -> Pack
         names = names_blob.decode().split("\x00")[:-1]
         codes = np.empty(total, np.uint8)
         soft = np.empty(-(-total // 8), np.uint8) if keep_raw else None
+        counts = np.zeros(2, np.int64)
         with _omp_threads(lib, threads):
             lib.fastaio_fill(h, codes.ctypes.data, None if soft is None else soft.ctypes.data,
-                             threads)
+                             threads, counts.ctypes.data)
     finally:
         lib.fastaio_free(h)
     return PackedGenome(
@@ -194,6 +201,8 @@ def _read_fasta_native(path: str, keep_raw: bool, lib, threads: int = 0) -> Pack
         fai_offsets=fai_off,
         fai_linebases=fai_lb,
         fai_linewidth=fai_lw,
+        n_bases=int(counts[0]),
+        soft_bases=int(counts[1]),
     )
 
 
@@ -266,7 +275,8 @@ def read_fasta(path: str, keep_raw: bool = True, native: bool | None = None,
     raw = np.frombuffer(b"".join(b"".join(p) for p in seq_parts), dtype=np.uint8)
     del seq_parts, data
     codes = CODE_LUT[raw]
-    soft = np.packbits(SOFT_LUT[raw], bitorder="little") if keep_raw else None
+    is_soft = SOFT_LUT[raw]
+    soft = np.packbits(is_soft, bitorder="little") if keep_raw else None
     del raw
     return PackedGenome(
         path=path,
@@ -279,6 +289,8 @@ def read_fasta(path: str, keep_raw: bool = True, native: bool | None = None,
         fai_offsets=np.asarray(fai_off, dtype=np.int64),
         fai_linebases=np.asarray(fai_lb, dtype=np.int64),
         fai_linewidth=np.asarray(fai_lw, dtype=np.int64),
+        n_bases=int(np.count_nonzero(codes == 4)),
+        soft_bases=int(np.count_nonzero(is_soft)),
     )
 
 

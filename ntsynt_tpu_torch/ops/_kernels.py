@@ -103,8 +103,8 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 # host library: name -> (restype, argtypes)
 _HOST_SIGNATURES = {
     "fastaio_scan": (_P, [ctypes.c_char_p]),
-    # handle, codes, soft (NULL: none), threads
-    "fastaio_fill": (None, [_P, _P, _P, ctypes.c_int]),
+    # handle, codes, soft (NULL: none), threads, counts (int64 [2]: code-4 and lowercase bases)
+    "fastaio_fill": (None, [_P, _P, _P, ctypes.c_int, _P]),
     "fastaio_n_contigs": (_I64, [_P]),
     "fastaio_total": (_I64, [_P]),
     "fastaio_names_len": (_I64, [_P]),

@@ -244,8 +244,22 @@ def test_counters_tsv_only_with_benchmark(tmp_path, monkeypatch, benchmark):
     want |= {f"synteny.new_mx:{r[1:]}:{g}" for r in rounds[1:] for g in ("ta.fa", "tb.fa")}
     want |= {f"synteny.gathered{r}" for r in rounds}
     want |= {f"write.records:sketch_tsv:{g}" for g in ("ta.fa", "tb.fa")} | {"write.records:dot"}
-    assert set(got) == want
-    assert all(v > 0 for v in got.values()), got
+    # what real sequence adds: the reads' N and lowercase bases, the
+    # dedupe's counts (the sketches' and each round's), the graphs'
+    # branch nodes; none of it in these uppercase, repeat-free genomes
+    added = {f"read.{n}:{g}" for n in ("n_bases", "soft_bases") for g in ("ta.fa", "tb.fa")}
+    added |= {f"assembly.{n}:{t}{g}" for n in ("dup_dropped", "dup_hashes")
+              for t in ("", "w250:", "w100:") for g in ("ta.fa", "tb.fa")}
+    added |= {f"synteny.branch_nodes{r}" for r in rounds}
+    records = {f"assembly.records:{t}{g}" for t in ("", "w250:", "w100:")
+               for g in ("ta.fa", "tb.fa")}
+    assert set(got) == want | added | records
+    assert all(got[n] > 0 for n in want | records), got
+    # the inversion's two ends may leave a branch in a graph
+    assert all(got[n] == 0 for n in added if "branch_nodes" not in n), got
+    assert all(0 <= got[f"synteny.branch_nodes{r}"] <= 4 for r in rounds), got
+    for g in ("ta.fa", "tb.fa"):
+        assert got[f"assembly.records:{g}"] == got[f"write.records:sketch_tsv:{g}"]
     # a path holds at least two nodes; a path gives at most one block
     assert got["synteny.nodes"] >= 2 * got["synteny.paths"]
     assert got["synteny.paths"] >= got["synteny.blocks"]
